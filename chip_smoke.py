@@ -5,20 +5,31 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, in order; any failure raises and the exit code is non-zero:
   1. device line, toolkit versions, and the build of every CUDA source;
-  2. each kernel against its plain PyTorch version on the card, at the
-     BLIP-2 FlanT5-XL weight shapes plus a ragged one, in bf16 and f32;
-  3. kernel timing (CUDA events) beside its bound, the plain version and a
-     PyTorch yardstick;
-  4. the main path: ``ecoflap_tpu_torch.cli.prune.main`` prunes BLIP-2
+  2. each kernel against its plain PyTorch version on the card: the
+     perturbation kernels (in place and out of place) at the BLIP-2
+     FlanT5-XL weight shapes plus a ragged one, in bf16 and f32; the causal
+     flash-attention kernel at the LLaMA calibration shape and a short one,
+     its causality, strided inputs, and refusals of what it does not take;
+  3. kernel timing (CUDA events) beside each kernel's bound, its plain
+     version and, where one exists, the PyTorch library call;
+  4. the BLIP-2 path: ``ecoflap_tpu_torch.cli.prune.main`` prunes BLIP-2
      FlanT5-XL at full width and depth (random bf16 weights, seed 42) with
      the ECoFLaP zeroth-order + Wanda flags of scripts/blip2/ecoflap_zeroth.py
      at the zeroth_pb shape, counting kernel launches;
-  5. the port on the card against the port on the CPU at the tiny shape.
-The line before the last holds the card's ``name, power.limit``; the last is
-``{"ok": true, "device": {...}}``.
+  5. the LLaMA path: the same entry point prunes LLaMA-7B at full width and
+     depth with the flags of scripts/llama/ecoflap_zero.sh, except one
+     coarse microbatch of 8 windows (the reference scores 32), counting
+     kernel launches;
+  6. the port on the card against the port on the CPU: tiny BLIP-2 in f32,
+     and a small LLaMA in bf16 on the card (flash kernel) against f32 on the
+     CPU (plain attention).
+Kernel launch counts are set to 0 just before each of phases 4 and 5 and
+read just after it. The line before the last holds the card's
+``name, power.limit``; the last is ``{"ok": true, "device": {...}}``.
 """
 
 import copy
+import gc
 import json
 import math
 import os
@@ -29,6 +40,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 # per element: 10 Philox rounds of 2 32x32->64 multiplies (4 ops) and 4
 # XORs, 9 key bumps of 2 adds, 2 shifts; then 2 int->float, 2 scalings, a
 # clamp, log, a product, sqrt, a product, cos, a product, scale*z, the add
@@ -36,12 +48,41 @@ PERTURB_OPS_PER_ELEMENT = 10 * 8 + 9 * 2 + 2 + 13
 XL_SHAPES = [(4224, 1408), (1408, 1408), (6144, 1408), (1408, 6144),
              (2048, 2048), (5120, 2048), (2048, 5120)]
 RAGGED = (301, 577)
+OUT_OF_PLACE_SHAPES = [(4224, 1408), (5120, 2048), RAGGED]
+# LLaMA-7B target shapes per block: q, k, v, o; gate, up; down
+LLAMA_SHAPES = [(4096, 4096)] * 4 + [(11008, 4096)] * 2 + [(4096, 11008)]
+LLAMA_LINEARS = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+                 "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj", "mlp.down_proj")
 SEED = 42
 BATCH_SIZE = 8
 NUM_SAMPLES = 128
 NUM_DATA_FIRST_STAGE = 32
+LLAMA_LAYERS = 32
+LLAMA_SEQLEN = 2048
+LLAMA_FIRST_STAGE = 8  # one coarse microbatch; the reference scores 32
 Z_ULP_TOL = 4  # CUDA logf/cosf vs PyTorch's: a few ulp at most
 BF16_MISMATCH_SHARE = 1e-4  # bf16 outputs a z ulp away from a rounding tie
+# (B, H, S, Dh): the coarse and fine chunk shape of LLaMA-7B, and a short one
+FLASH_SHAPES = [(8, 32, 2048, 128), (1, 32, 512, 128)]
+# kernel (bf16 out) vs plain version (float32 throughout, one rounding to
+# bf16). The output rounding alone is half a bf16 ulp, 2^-9 relative, on
+# either side, so two roundings can sit one ulp (2^-8 = 3.9e-3 relative)
+# apart; the kernel also rounds P to bf16 before P V, a relative error of
+# at most 2^-9 per term that averages out over the keys. So: at most 2e-2
+# of max(1, |plain|), five bf16 ulps, per element; and a mean |error| of
+# 2e-3, a fraction of one ulp at the outputs' typical size (|o| < 1).
+FLASH_MAX_REL = 2e-2
+FLASH_MEAN_ABS = 2e-3
+# small LLaMA, bf16 on the card vs f32 on the CPU. Logits: each of ~20
+# roundings per block (weights included) is at most 2^-9 = 2e-3 relative,
+# and they add up as a random walk, so the relative L2 error of the logits
+# sits near 1e-2. The embeddings are N(0, 0.02) and every block adds O(1),
+# so the logits are what attention and the MLPs make of them: a kernel that
+# attends to the wrong keys moves them by O(1). Loss: it sits near ln(512)
+# whatever the logits are, so it only guards the loss tail, at a few times
+# the error measured on the H100 (1.4e-4).
+LLAMA_LOGITS_REL = 3e-2
+LLAMA_LOSS_RTOL = 1e-3
 
 
 def log(*a):
@@ -116,6 +157,93 @@ def check_perturb(P, torch, shape, dtype):
     return err, ulps
 
 
+def check_perturb_out_of_place(P, torch, shape, dtype):
+    """``perturb`` vs its plain version, vs the in-place kernel (bit for bit)
+    and its input left untouched; returns the worst |kernel - plain|."""
+    dev = torch.device("cuda")
+    seed = 0x5851F42D4C957F2D ^ (shape[0] << 20 | shape[1])
+    g = torch.Generator(device=dev).manual_seed(shape[0] * shape[1] + 1)
+    w = (torch.randn(shape, generator=g, device=dev) * 0.02).to(dtype)
+    keep = w.clone()
+    out = P.perturb(w, seed, 1e-3)
+    assert torch.equal(w, keep), f"perturb {shape}: the input was written"
+    inplace = w.clone()
+    P.perturb_inplace(inplace, seed, 1e-3)
+    assert torch.equal(out, inplace), f"perturb {shape}: differs from in place"
+    ref = P.perturb_ref(w, seed, 1e-3)
+    err = (out.float() - ref.float()).abs().max().item()
+    if dtype == torch.bfloat16:
+        bits = (out.view(torch.int16).int() - ref.view(torch.int16).int()).abs()
+        assert bits.max().item() <= 1, f"perturb {shape}: bf16 > 1 ulp apart"
+        mism = (bits > 0).float().mean().item()
+        assert mism <= BF16_MISMATCH_SHARE, f"perturb {shape}: {mism} differ"
+    else:
+        assert err <= 1e-6, f"perturb {shape}: f32 outputs differ by {err}"
+    torch.cuda.synchronize()
+    return err
+
+
+def qkv(torch, shape, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+                 for _ in range(3))
+
+
+def check_flash(A, torch, shape):
+    """The kernel against its plain version on q, k, v ~ N(0, 1) bf16, and
+    on the strided (B, S, H, Dh) -> (B, H, S, Dh) views the model passes."""
+    q, k, v = qkv(torch, shape, sum(shape))
+    scale = shape[-1] ** -0.5
+    out = A.flash_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    ref = A.flash_attention_ref(q, k, v, scale).float()
+    assert torch.isfinite(out).all(), f"flash {shape}: non-finite output"
+    diff = (out.float() - ref).abs()
+    max_abs, mean_abs = diff.max().item(), diff.mean().item()
+    rel = (diff / ref.abs().clamp_min(1.0)).max().item()
+    del diff, ref
+    assert rel <= FLASH_MAX_REL, f"flash {shape}: max rel err {rel}"
+    assert mean_abs <= FLASH_MEAN_ABS, f"flash {shape}: mean abs err {mean_abs}"
+    b, h, s, dh = shape
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+    assert views[2].stride() == (s * h * dh, dh, h * dh, 1)
+    assert torch.equal(A.flash_attention(*views, scale), out), \
+        f"flash {shape}: strided inputs give other bits"
+    return max_abs, mean_abs, rel
+
+
+def check_flash_causal_and_refusals(A, torch):
+    """Changing keys and values after row r leaves rows 0..r bit-identical;
+    shapes, types and devices the kernel does not take raise."""
+    shape, r = (2, 4, 512, 128), 300
+    q, k, v = qkv(torch, shape, 11)
+    out = A.flash_attention(q, k, v, 0.1)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, r + 1:] = k2[:, :, r + 1:] * 3 + 1
+    v2[:, :, r + 1:] = -v2[:, :, r + 1:]
+    out2 = A.flash_attention(q, k2, v2, 0.1)
+    assert torch.equal(out[:, :, :r + 1], out2[:, :, :r + 1]), "flash is not causal"
+    assert not torch.equal(out[:, :, r + 1:], out2[:, :, r + 1:])
+
+    def refuses(exc, fn):
+        try:
+            fn()
+        except exc:
+            return
+        raise AssertionError(f"expected {exc.__name__}")
+
+    bad = torch.zeros(1, 2, 100, 128, dtype=torch.bfloat16, device="cuda")
+    refuses(ValueError, lambda: A.mha(bad, bad, bad, causal=True, mode="flash"))
+    refuses(ValueError, lambda: A.flash_attention(bad, bad, bad, 1.0))
+    d64 = torch.zeros(1, 2, 512, 64, dtype=torch.bfloat16, device="cuda")
+    refuses(ValueError, lambda: A.flash_attention(d64, d64, d64, 1.0))
+    f32 = torch.zeros(1, 2, 512, 128, device="cuda")
+    refuses(TypeError, lambda: A.flash_attention(f32, f32, f32, 1.0))
+    grad = f32.to(torch.bfloat16).requires_grad_()
+    refuses(NotImplementedError, lambda: A.flash_attention(grad, grad, grad, 1.0))
+    torch.cuda.synchronize()
+
+
 def time_cuda(torch, fn, iters):
     fn()
     torch.cuda.synchronize()
@@ -142,6 +270,47 @@ def time_perturb(P, torch, shape):
     return {"shape": list(shape), "ms": ms, "plain_ms": plain,
             "three_call_yardstick_ms": yard, "bytes_bound_ms": bytes_ms,
             "ops_bound_ms": ops_ms}
+
+
+def time_perturb_out_of_place(P, torch, shape):
+    dev = torch.device("cuda")
+    n = shape[0] * shape[1]
+    w = (torch.randn(shape, device=dev) * 0.02).to(torch.bfloat16)
+    ms = time_cuda(torch, lambda: P.perturb(w, 7, 1e-3), 50)
+    plain = time_cuda(torch, lambda: P.perturb_ref(w, 7, 1e-3), 5)
+    return {"shape": list(shape), "ms": ms, "plain_ms": plain,
+            "bytes_bound_ms": 2 * n * w.element_size() / HBM_BYTES_PER_S * 1e3,
+            "ops_bound_ms": PERTURB_OPS_PER_ELEMENT * n / F32_OPS_PER_S * 1e3}
+
+
+def time_flash(A, torch, shape):
+    """Kernel, library call and plain version at one shape, kernel and
+    library in turns. The bound counts the causal half the function needs:
+    Q Kᵀ and P V over S(S+1)/2 (query, key) pairs per head, 2 operations a
+    multiply-add; bytes are q, k, v read once and o written once."""
+    import torch.nn.functional as F
+
+    b, h, s, dh = shape
+    q, k, v = qkv(torch, shape, 5)
+    scale = dh ** -0.5
+    kernel = lambda: A.flash_attention(q, k, v, scale)  # noqa: E731
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=True, scale=scale)
+    k1 = time_cuda(torch, kernel, 20)
+    l1 = time_cuda(torch, library, 20)
+    l2 = time_cuda(torch, library, 20)
+    k2 = time_cuda(torch, kernel, 20)
+    plain = time_cuda(torch, lambda: A.flash_attention_ref(q, k, v, scale), 3)
+    ops = 2 * 2 * b * h * dh * s * (s + 1) / 2
+    nbytes = 4 * b * h * s * dh * q.element_size()
+    return {"shape": list(shape), "ms": (k1 + k2) / 2, "library_ms": (l1 + l2) / 2,
+            "plain_ms": plain, "ops_bound_ms": ops / BF16_OPS_PER_S * 1e3,
+            "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def bound(t):
+    by = "bytes" if t["bytes_bound_ms"] >= t["ops_bound_ms"] else "operations"
+    return max(t["bytes_bound_ms"], t["ops_bound_ms"]), by
 
 
 def xl_target_shapes():
@@ -188,6 +357,82 @@ def small_reference_check(torch):
     return lerr, serr
 
 
+def small_llama_check(torch):
+    """A small LLaMA (2 layers, d_model 256, 2 heads of 128, S 512, vocab
+    512): bf16 on the card, where attention is the flash kernel, against
+    f32 on the CPU, where it is the plain path; one set of weights, made on
+    the CPU. Returns the relative L2 error of the logits and the worst
+    relative per-sample loss difference."""
+    from ecoflap_tpu_torch.data import calibration as cal
+    from ecoflap_tpu_torch.models import llama
+    from ecoflap_tpu_torch.ops import attention as A
+
+    cfg = llama.LlamaConfig(vocab_size=512, d_model=256, num_layers=2, num_heads=2,
+                            num_kv_heads=2, d_ff=688, max_seq_len=512)
+    cpu_model = llama.build_model(cfg, device="cpu", dtype=torch.float32, seed=3)
+    ids = cal.build_lm_calibration_batch(
+        cal.synthetic_token_stream(4, 512, cfg.vocab_size, 0), 4, 512, 0)["input_ids"]
+    with torch.no_grad():
+        want = cpu_model(ids)
+        card = copy.deepcopy(cpu_model).to("cuda", torch.bfloat16)
+        before = A.flash_attention.launches
+        got = card(ids.cuda()).cpu()
+    assert A.flash_attention.launches - before == cfg.num_layers, \
+        "the small LLaMA did not run the flash kernel"
+    assert torch.isfinite(got).all() and got.shape == (4, 512, cfg.vocab_size)
+    logits_rel = ((got - want).norm() / want.norm()).item()
+    assert logits_rel < LLAMA_LOGITS_REL, \
+        f"small LLaMA logits card (bf16) vs CPU (f32): relative L2 {logits_rel}"
+    lg, lc = (llama.next_token_ce(x, ids, None) for x in (got, want))
+    loss_rel = ((lg - lc).abs() / lc.abs()).max().item()
+    assert loss_rel < LLAMA_LOSS_RTOL, \
+        f"small LLaMA loss card (bf16) vs CPU (f32): rel {loss_rel}"
+    return logits_rel, loss_rel
+
+
+def reset_counts(kernels):
+    for fn in kernels.values():
+        fn.launches = 0
+
+
+def read_counts(kernels):
+    return {name: fn.launches for name, fn in kernels.items()}
+
+
+def run_path(cli, kernels, argv):
+    """One main-path run through the CLI with every count set to 0 just
+    before and read just after; frees the model afterwards."""
+    reset_counts(kernels)
+    t0 = time.time()
+    res = cli.main(argv)
+    wall = time.time() - t0
+    counts = read_counts(kernels)
+    gc.collect()
+    import torch
+
+    torch.cuda.empty_cache()
+    return res, wall, counts
+
+
+def log_path(name, res, wall, counts):
+    log(f"{name} path: {wall:.1f} s incl. model init | prune {res['wall_clock_s']} s | "
+        + " | ".join(f"{k} {v:.2f}" for k, v in res["phase_times"].items())
+        + f" | peak {res['peak_gib']:.2f} GiB | launches {counts}")
+
+
+def check_scores_and_dict(read_flat_yaml, res, n_targets, cap, target):
+    scores = res["leaf_scores"]
+    vals = list(scores.values())
+    assert len(vals) == n_targets, len(vals)
+    assert all(math.isfinite(v) and v >= 0 for v in vals), "bad MeZO scores"
+    assert len(set(vals)) > 1, "all MeZO scores equal"
+    sd = read_flat_yaml(res["sparsity_dict"])
+    assert len(sd) == n_targets and set(sd) == set(scores), "sparsity dict keys"
+    assert max(sd.values()) <= cap + 1e-9, max(sd.values())
+    assert abs(res["prunable_sparsity"] - target) <= 0.01, res["prunable_sparsity"]
+    return vals, sd
+
+
 def main() -> int:
     import torch
 
@@ -196,8 +441,13 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ecoflap_tpu_torch.ops import attention as A
     from ecoflap_tpu_torch.ops import build
     from ecoflap_tpu_torch.ops import perturb as P
+
+    kernels = {"perturb_inplace": P.perturb_inplace, "perturb": P.perturb,
+               "flash_attention": A.flash_attention}
+    t_start = time.time()
 
     # -- 1. device and build --------------------------------------------------
     smi = nvidia_smi_line()
@@ -220,23 +470,51 @@ def main() -> int:
     log(f"perturb_inplace vs plain: all {2 * (len(XL_SHAPES) + 1)} cases pass; "
         f"worst |w_kernel - w_plain| {worst_err:.3e} (scale 1e-3), "
         f"worst z {worst_ulp:.0f} ulp, Philox words bit-identical")
+    oop_err = max(check_perturb_out_of_place(P, torch, shape, dtype)
+                  for dtype in (torch.bfloat16, torch.float32)
+                  for shape in OUT_OF_PLACE_SHAPES)
+    log(f"perturb (out of place) vs plain: {2 * len(OUT_OF_PLACE_SHAPES)} cases "
+        f"pass; bit-identical to the in-place kernel, input untouched, worst "
+        f"|kernel - plain| {oop_err:.3e}")
+    flash_err = {}
+    for shape in FLASH_SHAPES:
+        flash_err[shape] = check_flash(A, torch, shape)
+        log(f"flash_attention vs plain {shape}: max |err| {flash_err[shape][0]:.4g}, "
+            f"mean |err| {flash_err[shape][1]:.3e}, max err / max(1, |plain|) "
+            f"{flash_err[shape][2]:.4g} (gates {FLASH_MAX_REL}, {FLASH_MEAN_ABS}); "
+            f"strided inputs bit-identical")
+    check_flash_causal_and_refusals(A, torch)
+    log("flash_attention: causal (rows <= r bit-identical when keys > r change); "
+        "ineligible shapes, float32 and inputs that require grad are refused")
 
     # -- 3. timing --------------------------------------------------------------
     timings = {}
-    for shape in XL_SHAPES + [RAGGED]:
+    for shape in sorted(set(XL_SHAPES + [RAGGED] + LLAMA_SHAPES)):
         t = time_perturb(P, torch, shape)
         timings[shape] = t
-        bound = max(t["bytes_bound_ms"], t["ops_bound_ms"])
-        by = "bytes" if t["bytes_bound_ms"] >= t["ops_bound_ms"] else "operations"
+        b, by = bound(t)
         log(f"perturb_inplace bf16 {shape[0]}x{shape[1]}: kernel {t['ms']:.4f} ms | "
-            f"bound {bound:.4f} ms ({by}) | plain {t['plain_ms']:.3f} ms | "
+            f"bound {b:.4f} ms ({by}) | plain {t['plain_ms']:.3f} ms | "
             f"yardstick randn+mul_+add_ (three calls) "
             f"{t['three_call_yardstick_ms']:.4f} ms")
+    oop_t = [time_perturb_out_of_place(P, torch, s) for s in OUT_OF_PLACE_SHAPES[:2]]
+    for t in oop_t:
+        b, by = bound(t)
+        log(f"perturb bf16 {t['shape'][0]}x{t['shape'][1]}: kernel {t['ms']:.4f} ms | "
+            f"bound {b:.4f} ms ({by}) | plain {t['plain_ms']:.3f} ms")
+    flash_t = time_flash(A, torch, FLASH_SHAPES[0])
+    fb, fby = bound(flash_t)
+    log(f"flash_attention {tuple(flash_t['shape'])}: kernel {flash_t['ms']:.4f} ms | "
+        f"bound {fb:.4f} ms ({fby}; ops {flash_t['ops_bound_ms']:.4f}, bytes "
+        f"{flash_t['bytes_bound_ms']:.4f}) | plain {flash_t['plain_ms']:.3f} ms | "
+        f"library scaled_dot_product_attention {flash_t['library_ms']:.4f} ms")
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # -- 4. main path -------------------------------------------------------------
     from ecoflap_tpu_torch.cli import prune as cli
     from ecoflap_tpu_torch.runners.runner import read_flat_yaml
 
+    # -- 4. BLIP-2 path -----------------------------------------------------------
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     argv = ["--model", "blip2_t5", "--model_scale", "full", "--seed", str(SEED),
             "--pruning_method", "blipt5_wanda_pruner",
@@ -246,50 +524,101 @@ def main() -> int:
             "--num_data_first_stage", str(NUM_DATA_FIRST_STAGE),
             "--num_samples", str(NUM_SAMPLES), "--batch_size", str(BATCH_SIZE),
             "--calib", "synthetic", "--output_dir", out_dir]
-    P.perturb_inplace.launches = 0
-    t0 = time.time()
-    res = cli.main(argv)
-    wall = time.time() - t0
-    launches = P.perturb_inplace.launches
-    pt = res["phase_times"]
-    log(f"main path: {wall:.1f} s incl. model init | prune {res['wall_clock_s']} s | "
-        + " | ".join(f"{k} {v:.2f}" for k, v in pt.items())
-        + f" | peak {res['peak_gib']:.2f} GiB")
-
+    res, wall, blip_counts = run_path(cli, kernels, argv)
+    log_path("BLIP-2", res, wall, blip_counts)
     shapes = xl_target_shapes()
     n_mb = NUM_DATA_FIRST_STAGE // BATCH_SIZE
-    assert launches == 3 * len(shapes) * n_mb == 3 * 588 * n_mb, launches
-    scores = res["leaf_scores"]
-    vals = list(scores.values())
-    assert len(vals) == 588, len(vals)
-    assert all(math.isfinite(v) and v >= 0 for v in vals), "bad MeZO scores"
-    assert len(set(vals)) > 1, "all MeZO scores equal"
-    sd = read_flat_yaml(res["sparsity_dict"])
-    assert len(sd) == 588 and set(sd) == set(scores), "sparsity dict keys"
-    assert max(sd.values()) <= 0.6 + 1e-9, max(sd.values())
-    assert abs(res["prunable_sparsity"] - 0.5) <= 0.01, res["prunable_sparsity"]
-    log(f"main path checks pass: {launches} perturb launches, 588 finite scores "
+    assert blip_counts["perturb_inplace"] == 3 * len(shapes) * n_mb == 3 * 588 * n_mb, \
+        blip_counts
+    vals, sd = check_scores_and_dict(read_flat_yaml, res, 588, 0.6, 0.5)
+    log(f"BLIP-2 path checks pass: {blip_counts['perturb_inplace']} perturb launches, "
+        f"588 finite scores in [{min(vals):.4g}, {max(vals):.4g}], ratios <= "
+        f"{max(sd.values()):.4f}, global sparsity {res['prunable_sparsity']}")
+    del res
+
+    # -- 5. LLaMA path -------------------------------------------------------------
+    argv = ["--model", "llama", "--model_scale", "full", "--seed", str(SEED),
+            "--pruning_method", "llama_wanda_pruner",
+            "--prune_spec", f"{LLAMA_LAYERS}-0.4-1.0-1.0",
+            "--sparsity_ratio_granularity", "block",
+            "--score_method", "MEZO-GradOnly_sum", "--max_sparsity_per_layer", "0.7",
+            "--num_data_first_stage", str(LLAMA_FIRST_STAGE),
+            "--num_samples", str(NUM_SAMPLES), "--batch_size", str(BATCH_SIZE),
+            "--seqlen", str(LLAMA_SEQLEN), "--calib", "synthetic",
+            "--output_dir", out_dir]
+    res, wall, llama_counts = run_path(cli, kernels, argv)
+    log_path("LLaMA-7B", res, wall, llama_counts)
+    n_targets = 7 * LLAMA_LAYERS
+    llama_mb = LLAMA_FIRST_STAGE // BATCH_SIZE
+    # coarse: each target's +eps and -eps losses run blocks i..L-1, and the
+    # suffix cache advances once through blocks 0..L-2; fine: per block, a
+    # statistics pass and a re-forward, each in NUM_SAMPLES / BATCH_SIZE
+    # chunks
+    want_flash = (2 * 7 * sum(LLAMA_LAYERS - i for i in range(LLAMA_LAYERS)) * llama_mb
+                  + (LLAMA_LAYERS - 1) + 2 * LLAMA_LAYERS * (NUM_SAMPLES // BATCH_SIZE))
+    assert llama_counts["flash_attention"] == want_flash, (llama_counts, want_flash)
+    assert llama_counts["perturb_inplace"] == 3 * n_targets * llama_mb, llama_counts
+    vals, sd = check_scores_and_dict(read_flat_yaml, res, n_targets, 0.7, 0.6)
+    assert sd.keys() == {f"model.layers.{i}.{n}.weight" for i in range(LLAMA_LAYERS)
+                         for n in LLAMA_LINEARS}, "LLaMA sparsity dict keys"
+    log(f"LLaMA-7B path checks pass: {llama_counts['flash_attention']} flash launches, "
+        f"{llama_counts['perturb_inplace']} perturb launches, {n_targets} finite scores "
         f"in [{min(vals):.4g}, {max(vals):.4g}], ratios <= {max(sd.values()):.4f}, "
         f"global sparsity {res['prunable_sparsity']}")
+    del res
 
-    # -- 5. card vs CPU at the tiny shape --------------------------------------
+    # -- 6. card vs CPU ------------------------------------------------------------
     lerr, serr = small_reference_check(torch)
-    log(f"tiny BLIP-2 card vs CPU: loss rel err {lerr:.2e}, MeZO score err beyond rtol 1e-3 {serr:.2e}")
+    log(f"tiny BLIP-2 card vs CPU: loss rel err {lerr:.2e}, MeZO score err beyond "
+        f"rtol 1e-3 {serr:.2e}")
+    logits_rel, loss_rel = small_llama_check(torch)
+    log(f"small LLaMA bf16 card (flash kernel) vs f32 CPU: logits relative L2 "
+        f"{logits_rel:.3e} (gate {LLAMA_LOGITS_REL}), per-sample loss rel err "
+        f"{loss_rel:.3e} (gate {LLAMA_LOSS_RTOL})")
 
-    # per launch, averaged over the main path's targets (12 launches each)
+    # per launch, launch-weighted over both paths' targets (BLIP-2: 3 launches
+    # per target and microbatch; LLaMA likewise)
+    weights = {}
+    for s in shapes:
+        weights[s] = weights.get(s, 0) + 3 * n_mb
+    for s in LLAMA_SHAPES * LLAMA_LAYERS:
+        weights[s] = weights.get(s, 0) + 3 * llama_mb
+
     def avg(key):
-        return sum(timings[s][key] for s in shapes) / len(shapes)
+        return sum(timings[s][key] * w for s, w in weights.items()) / sum(weights.values())
 
-    bytes_ms, ops_ms = avg("bytes_bound_ms"), avg("ops_bound_ms")
-    log(json.dumps({"kernels": [{
-        "name": "perturb_inplace", "route": "cuda",
-        "source": "ecoflap_tpu_torch/csrc/perturb.cu",
-        "replaces": "ecoflap_tpu/ops/perturb.py:54",
-        "launches": launches, "max_abs_err": worst_err,
-        "ms": avg("ms"), "plain_ms": avg("plain_ms"),
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None}]}))
+    p_bound, p_by = bound({"bytes_bound_ms": avg("bytes_bound_ms"),
+                           "ops_bound_ms": avg("ops_bound_ms")})
+    o_bound, o_by = bound({k: sum(t[k] for t in oop_t) / len(oop_t)
+                           for k in ("bytes_bound_ms", "ops_bound_ms")})
+    launches = {k: blip_counts[k] + llama_counts[k] for k in kernels}
+    by_path = {k: {"blip2_t5": blip_counts[k], "llama": llama_counts[k]} for k in kernels}
+    log(json.dumps({"kernels": [
+        {"name": "perturb_inplace", "route": "cuda",
+         "source": "ecoflap_tpu_torch/csrc/perturb.cu",
+         "replaces": "ecoflap_tpu/ops/perturb.py:54",
+         "launches": launches["perturb_inplace"],
+         "launches_by_path": by_path["perturb_inplace"], "max_abs_err": worst_err,
+         "ms": avg("ms"), "plain_ms": avg("plain_ms"),
+         "bound_ms": p_bound, "bound_by": p_by, "library_ms": None},
+        {"name": "perturb", "route": "cuda",
+         "source": "ecoflap_tpu_torch/csrc/perturb.cu",
+         "replaces": "ecoflap_tpu/ops/perturb.py:31",
+         "launches": launches["perturb"], "launches_by_path": by_path["perturb"],
+         "max_abs_err": oop_err,
+         "ms": sum(t["ms"] for t in oop_t) / len(oop_t),
+         "plain_ms": sum(t["plain_ms"] for t in oop_t) / len(oop_t),
+         "bound_ms": o_bound, "bound_by": o_by, "library_ms": None},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "ecoflap_tpu_torch/csrc/flash_attn.cu",
+         "replaces": "ecoflap_tpu/ops/attention.py:189",
+         "launches": launches["flash_attention"],
+         "launches_by_path": by_path["flash_attention"],
+         "max_abs_err": flash_err[FLASH_SHAPES[0]][0],
+         "ms": flash_t["ms"], "plain_ms": flash_t["plain_ms"],
+         "bound_ms": fb, "bound_by": fby, "library_ms": flash_t["library_ms"]},
+    ]}))
+    log(f"chip_smoke: {time.time() - t_start:.1f} s in all")
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-"""Prune CLI for BLIP-2 FlanT5 (port of the blip2_t5 branch of
-``ecoflap_tpu/cli/prune.py``). The reference flag names, so
-``scripts/blip2/ecoflap_zeroth.py``'s arguments carry over:
+"""Prune CLI for BLIP-2 FlanT5 and LLaMA (port of the blip2_t5 and llama
+branches of ``ecoflap_tpu/cli/prune.py``). The reference flag names, so
+``scripts/blip2/ecoflap_zeroth.py``'s and ``scripts/llama/ecoflap_zero.sh``'s
+arguments carry over:
 
   python -m ecoflap_tpu_torch.cli.prune --model blip2_t5 --model_scale full \\
       --pruning_method blipt5_wanda_pruner \\
@@ -9,8 +10,15 @@
       --max_sparsity_per_layer 0.6 --num_data_first_stage 128 \\
       --num_samples 128 --batch_size 8
 
+  python -m ecoflap_tpu_torch.cli.prune --model llama --model_scale full \\
+      --pruning_method llama_wanda_pruner --prune_spec 32-0.4-1.0-1.0 \\
+      --sparsity_ratio_granularity block --score_method MEZO-GradOnly_sum \\
+      --max_sparsity_per_layer 0.7 --num_data_first_stage 32 \\
+      --num_samples 128 --batch_size 8 --seqlen 2048
+
 Runs on the card unless ``--device cpu``. The model is randomly initialised
-from ``--seed`` at ``--model_scale``; calibration is synthetic.
+from ``--seed`` at ``--model_scale``; calibration is synthetic (for LLaMA the
+JAX CLI's token stream, so both CLIs cut the same windows for one seed).
 """
 
 from __future__ import annotations
@@ -26,16 +34,20 @@ import torch
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="ECoFLaP pruning (PyTorch/CUDA)",
                                 allow_abbrev=False)
-    p.add_argument("--model", required=True, choices=["blip2_t5"])
+    p.add_argument("--model", required=True, choices=["blip2_t5", "llama"])
     p.add_argument("--model_scale", default="tiny",
                    choices=["tiny", "small", "full"],
-                   help="tiny = test shapes; small = ViT-B + flan-t5-base; "
-                        "full = EVA ViT-g + FlanT5-XL")
+                   help="tiny = test shapes; small = ViT-B + flan-t5-base or "
+                        "OpenLLaMA-3B; full = EVA ViT-g + FlanT5-XL or LLaMA-7B")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--pruning_method", default="blipt5_wanda_pruner")
     p.add_argument("--t5_prune_spec", default=None)
     p.add_argument("--vit_prune_spec", default=None)
+    p.add_argument("--prune_spec", default=None,
+                   help="llama: the spec of model.layers")
+    p.add_argument("--seqlen", type=int, default=2048,
+                   help="llama calibration window (32 at --model_scale tiny)")
     p.add_argument("--sparsity_ratio_granularity", default=None,
                    choices=[None, "block"])
     p.add_argument("--max_sparsity_per_layer", type=float, default=0.8)
@@ -50,12 +62,54 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None) -> Dict[str, Any]:
-    """Prune and print the result JSON line. Returns that result plus the
-    run's ``phase_times`` (s), ``peak_gib`` and per-target ``leaf_scores``."""
-    from ecoflap_tpu_torch.core.device import exact_float32_matmuls, resolve_device
+def _blip2(args, device, dtype):
+    """(adapter, batch, microbatches, stack specs)."""
     from ecoflap_tpu_torch.data import calibration as cal
     from ecoflap_tpu_torch.models import blip2
+
+    scale = args.model_scale
+    cfg = (blip2.blip2_flant5xl() if scale == "full"
+           else blip2.blip2_small() if scale == "small"
+           else blip2.tiny_config())
+    model = blip2.build_model(cfg, device=device, dtype=dtype, seed=args.seed)
+    spec = cal.CalibrationSpec(args.num_samples, args.batch_size)
+    samples = cal.synthetic_vl_samples(args.num_samples, cfg.vit.img_size,
+                                       args.seed)
+    batch = cal.build_vl_calibration_batch(
+        samples, cal.HashTokenizer(vocab_size=cfg.t5.vocab_size), spec, args.seed)
+    stack_specs = {}
+    if args.vit_prune_spec:
+        stack_specs["visual_encoder.blocks"] = args.vit_prune_spec
+    if args.t5_prune_spec:
+        stack_specs["t5_model.encoder.block"] = args.t5_prune_spec
+        stack_specs["t5_model.decoder.block"] = args.t5_prune_spec
+    return blip2.make_adapter(model), batch, spec.num_microbatches, stack_specs
+
+
+def _llama(args, device, dtype):
+    from ecoflap_tpu_torch.data import calibration as cal
+    from ecoflap_tpu_torch.models import llama
+
+    scale = args.model_scale
+    cfg = (llama.llama_7b() if scale == "full"
+           else llama.open_llama_3b() if scale == "small"
+           else llama.tiny_config())
+    seqlen = args.seqlen if scale in ("full", "small") else 32
+    model = llama.build_model(cfg, device=device, dtype=dtype, seed=args.seed)
+    stream = cal.synthetic_token_stream(args.num_samples, seqlen, cfg.vocab_size,
+                                        args.seed)
+    batch = cal.build_lm_calibration_batch(stream, args.num_samples, seqlen,
+                                           args.seed)
+    stack_specs = {"model.layers": args.prune_spec} if args.prune_spec else {}
+    return (llama.make_adapter(model), batch,
+            max(1, args.num_samples // args.batch_size), stack_specs)
+
+
+def main(argv=None) -> Dict[str, Any]:
+    """Prune and print the result JSON line, which holds the run's
+    ``phase_times`` (s) and ``peak_gib`` too. Returns that result plus the
+    per-target ``leaf_scores``."""
+    from ecoflap_tpu_torch.core.device import exact_float32_matmuls, resolve_device
     from ecoflap_tpu_torch.pruning.loader import load_pruner
     from ecoflap_tpu_torch.runners.runner import Runner, global_sparsity
 
@@ -64,29 +118,14 @@ def main(argv=None) -> Dict[str, Any]:
     # TF32 off for matmuls and convolutions, once, here: float32 runs must
     # compute what the JAX package computes
     exact_float32_matmuls()
-    scale = args.model_scale
-    cfg = (blip2.blip2_flant5xl() if scale == "full"
-           else blip2.blip2_small() if scale == "small"
-           else blip2.tiny_config())
-    # bf16 weights as the reference runs its towers; float32 at test size
-    dtype = torch.bfloat16 if scale in ("full", "small") else torch.float32
+    # bf16 weights as the reference runs its models; float32 at test size
+    dtype = torch.bfloat16 if args.model_scale in ("full", "small") else torch.float32
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
-    model = blip2.build_model(cfg, device=device, dtype=dtype, seed=args.seed)
-    spec = cal.CalibrationSpec(args.num_samples, args.batch_size)
-    samples = cal.synthetic_vl_samples(args.num_samples, cfg.vit.img_size,
-                                       args.seed)
-    batch = cal.build_vl_calibration_batch(
-        samples, cal.HashTokenizer(vocab_size=cfg.t5.vocab_size), spec, args.seed)
+    setup = _llama if args.model == "llama" else _blip2
+    adapter, batch, num_microbatches, stack_specs = setup(args, device, dtype)
     batch = {k: t.to(device) for k, t in batch.items()}
-    adapter = blip2.make_adapter(model)
-    stack_specs = {}
-    if args.vit_prune_spec:
-        stack_specs["visual_encoder.blocks"] = args.vit_prune_spec
-    if args.t5_prune_spec:
-        stack_specs["t5_model.encoder.block"] = args.t5_prune_spec
-        stack_specs["t5_model.decoder.block"] = args.t5_prune_spec
 
     job_id = args.job_id or (
         f"{args.pruning_method}_{args.score_method}"
@@ -101,8 +140,8 @@ def main(argv=None) -> Dict[str, Any]:
         seed=args.seed,
     )
     t0 = time.time()
-    pruner = load_pruner(args.pruning_method, adapter, batch,
-                         spec.num_microbatches, pruner_cfg)
+    pruner = load_pruner(args.pruning_method, adapter, batch, num_microbatches,
+                         pruner_cfg)
     with torch.no_grad():
         model, sparsity_dict = pruner.prune()
     if device.type == "cuda":
@@ -112,18 +151,19 @@ def main(argv=None) -> Dict[str, Any]:
     sd_path = runner.save_sparsity_dict(sparsity_dict)
     stats_path = runner.save_training_statistics(wall, device)
     sparsity = global_sparsity(t.weight(model) for t in adapter.targets())
+    peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30
+            if device.type == "cuda" else None)
     result = {
         "job_id": job_id,
         "wall_clock_s": round(wall, 1),
         "prunable_sparsity": round(sparsity, 4),
         "sparsity_dict": sd_path,
         "stats": stats_path,
+        "phase_times": dict(pruner.phase_times),
+        "peak_gib": peak,
     }
     print(json.dumps(result))
-    peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30
-            if device.type == "cuda" else None)
-    return {**result, "phase_times": dict(pruner.phase_times), "peak_gib": peak,
-            "leaf_scores": dict(pruner.leaf_scores)}
+    return {**result, "leaf_scores": dict(pruner.leaf_scores)}
 
 
 if __name__ == "__main__":

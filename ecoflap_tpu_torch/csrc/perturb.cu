@@ -1,8 +1,12 @@
-// In-place Gaussian perturbation for zeroth-order (MeZO) scoring:
-//     w[i] += scale * z[i],   z ~ N(0, 1) generated inside the kernel.
+// Gaussian perturbation for zeroth-order (MeZO) scoring:
+//     w[i] += scale * z[i]   (in place), or
+//     out[i] = w[i] + scale * z[i]   (out of place),
+// z ~ N(0, 1) generated inside the kernel.
 //
-// Replaces the TPU kernel ecoflap_tpu/ops/perturb.py:_perturb_block_kernel
-// (wrapper perturb_block_inplace), which drew z from the TPU's own PRNG.
+// Replaces the TPU kernels ecoflap_tpu/ops/perturb.py:_perturb_block_kernel
+// (wrapper perturb_block_inplace; the in-place entry) and
+// ecoflap_tpu/ops/perturb.py:_perturb_kernel (wrapper perturb; the
+// out-of-place entry), which drew z from the TPU's own PRNG.
 // Here z comes from a counter-based Philox4x32-10 keyed by a 64-bit seed,
 // with the element's linear index as the counter: the stream does not depend
 // on the launch shape, so the plain PyTorch version in
@@ -82,17 +86,18 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
 }
 
 // One element per thread step, grid-stride over the flat tensor: any shape,
-// the ragged tail is the loop bound.
+// the ragged tail is the loop bound. dst == src is the in-place form; each
+// element is read and written by one thread, so the two may alias.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-perturb_kernel(T* __restrict__ w, uint64_t n, uint64_t seed, float scale) {
+perturb_kernel(const T* src, T* dst, uint64_t n, uint64_t seed, float scale) {
   const uint64_t stride = static_cast<uint64_t>(gridDim.x) * blockDim.x;
   for (uint64_t i = static_cast<uint64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
     uint32_t a, b;
     philox_words(seed, i, &a, &b);
     const float z = normal_from_words(a, b);
-    store_f32(w + i, __fadd_rn(load_f32(w + i), __fmul_rn(scale, z)));
+    store_f32(dst + i, __fadd_rn(load_f32(src + i), __fmul_rn(scale, z)));
   }
 }
 
@@ -118,26 +123,40 @@ unsigned int grid_for(uint64_t n) {
   return static_cast<unsigned int>(want < cap ? want : cap);
 }
 
-}  // namespace
-
-extern "C" {
-
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 = cudaSuccess).
-int ecoflap_perturb_inplace(void* w, int dtype, uint64_t n, uint64_t seed,
-                            float scale, void* stream) {
+int launch_perturb(const void* src, void* dst, int dtype, uint64_t n, uint64_t seed,
+                   float scale, void* stream) {
   if (n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     perturb_kernel<float><<<grid_for(n), kThreads, 0, s>>>(
-        static_cast<float*>(w), n, seed, scale);
+        static_cast<const float*>(src), static_cast<float*>(dst), n, seed, scale);
   } else if (dtype == 1) {
     perturb_kernel<__nv_bfloat16><<<grid_for(n), kThreads, 0, s>>>(
-        static_cast<__nv_bfloat16*>(w), n, seed, scale);
+        static_cast<const __nv_bfloat16*>(src), static_cast<__nv_bfloat16*>(dst), n,
+        seed, scale);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError() after
+// the launch (0 = cudaSuccess).
+int ecoflap_perturb_inplace(void* w, int dtype, uint64_t n, uint64_t seed,
+                            float scale, void* stream) {
+  return launch_perturb(w, w, dtype, n, seed, scale, stream);
+}
+
+// Out of place (replaces ecoflap_tpu/ops/perturb.py:_perturb_kernel):
+// out = w + scale * z with the stream and arithmetic of the in-place entry,
+// so the two give the same bits for the same seed.
+int ecoflap_perturb(const void* w, void* out, int dtype, uint64_t n,
+                    uint64_t seed, float scale, void* stream) {
+  return launch_perturb(w, out, dtype, n, seed, scale, stream);
 }
 
 int ecoflap_philox_words(void* out, uint64_t n, uint64_t seed, void* stream) {

@@ -1,5 +1,5 @@
-"""Calibration batches for BLIP-2 (port of the VL parts of
-``ecoflap_tpu/data/calibration.py``).
+"""Calibration batches for BLIP-2 and LLaMA (port of the VL and LM parts
+of ``ecoflap_tpu/data/calibration.py``).
 
 * CC3M-style caption split: a random CHARACTER split point in
   ``[1, len(caption)//2]``; the prefix is the text input, the rest the
@@ -8,6 +8,8 @@
   call, so every run works without downloaded vocab files.
 * One stacked batch of ``num_samples`` samples (leading dim = microbatches x
   batch size), what the pruning stages consume.
+* LM calibration: random ``seqlen`` windows of one token stream (wanda's
+  ``get_c4``), with the JAX package's numpy draws.
 
 The values equal the JAX package's; integer fields are int64 tensors.
 """
@@ -92,6 +94,25 @@ def build_vl_calibration_batch(samples: Iterable[Dict[str, Any]], tokenizer,
         "text_input_mask": torch.from_numpy(in_mask),
         "labels": torch.from_numpy(labels.astype(np.int64)),
     }
+
+
+def build_lm_calibration_batch(token_stream: np.ndarray, num_samples: int,
+                               seqlen: int, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """{input_ids: (num_samples, seqlen) int64} of random windows of one
+    token stream (calibration.py:311-323), on the CPU."""
+    rng = np.random.default_rng(seed)
+    n = token_stream.shape[0]
+    starts = rng.integers(0, max(n - seqlen, 1), size=num_samples)
+    windows = np.stack([token_stream[s:s + seqlen] for s in starts])
+    return {"input_ids": torch.from_numpy(windows.astype(np.int64))}
+
+
+def synthetic_token_stream(num_samples: int, seqlen: int, vocab_size: int,
+                           seed: int = 0) -> np.ndarray:
+    """The JAX CLI's synthetic stream (cli/prune.py:497-500): ids in
+    [2, vocab), room for ``num_samples`` windows and one more."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(2, vocab_size, size=(num_samples * seqlen + seqlen,))
 
 
 def synthetic_vl_samples(n: int, img_size: int, seed: int = 0,

@@ -1,10 +1,11 @@
-"""Load the JAX package's BLIP-2 parameters into the port's model.
+"""Load the JAX package's BLIP-2 or LLaMA parameters into the port's model.
 
 ``flat`` is the JAX pytree as numpy arrays under dotted names (what
 ``ecoflap_tpu.core.pytree.flatten_named`` gives). Stacked ``(L, ...)`` leaves
 split into the per-block modules, ``(in, out)`` kernels transpose to
 ``(out, in)``, ``scale`` becomes a norm's ``weight``, and the T5 relative
-bias tables move onto block 0 as in HF.
+bias tables move onto block 0 as in HF. LLaMA takes the HF names that
+``ecoflap_tpu/utils/checkpoint.py:export_llama`` writes.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ecoflap_tpu_torch.models import llama as llama_mod
 from ecoflap_tpu_torch.models import t5 as t5_mod
 
 Flat = Dict[str, np.ndarray]
@@ -36,7 +38,30 @@ def _norm(sd, name, flat, src, i=None, bias=True):
 
 
 def jax_to_state_dict(flat: Flat, cfg) -> Dict[str, np.ndarray]:
-    """The port's state dict (reference names) from the JAX flat params."""
+    """The port's state dict (reference names) from the JAX flat params, by
+    the model family of ``cfg``."""
+    if isinstance(cfg, llama_mod.LlamaConfig):
+        return _llama_state_dict(flat, cfg)
+    return _blip2_state_dict(flat, cfg)
+
+
+def _llama_state_dict(flat: Flat, cfg) -> Dict[str, np.ndarray]:
+    sd: Dict[str, np.ndarray] = {
+        "model.embed_tokens.weight": flat["embed_tokens"],
+        "model.norm.weight": flat["norm.scale"],
+        "lm_head.weight": flat["lm_head.kernel"].T,
+    }
+    for i in range(cfg.num_layers):
+        tl = f"model.layers.{i}"
+        _norm(sd, f"{tl}.input_layernorm", flat, "layers.input_ln", i, bias=False)
+        _norm(sd, f"{tl}.post_attention_layernorm", flat, "layers.post_ln", i,
+              bias=False)
+        for local, path in llama_mod.LOCAL_TO_PATH.items():
+            _dense(sd, f"{tl}.{local}", flat, f"layers.{path}", i, bias=False)
+    return sd
+
+
+def _blip2_state_dict(flat: Flat, cfg) -> Dict[str, np.ndarray]:
     sd: Dict[str, np.ndarray] = {}
     v, pv = cfg.vit, "visual_encoder"
     pe = flat[f"{pv}.patch_embed.kernel"]  # (C*p*p, d), rows ordered (C, ph, pw)

@@ -10,24 +10,28 @@ hooks.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 
+from ecoflap_tpu_torch.ops.attention import mha
+
 Stats = Optional[Dict[str, torch.Tensor]]
 
 
-def collect_stats(stats: Stats, name: str, x: torch.Tensor,
-                  collect: Optional[str]) -> None:
-    """Raw sum of x^2 per input column of the linear ``name`` (Wanda)."""
+def collect_stats(stats: Stats, name: Union[str, Sequence[str]],
+                  x: torch.Tensor, collect: Optional[str]) -> None:
+    """Raw sum of x^2 per input column of the linear ``name`` (Wanda). A
+    sequence of names shares one sum: linears that read the same input."""
     if stats is None or collect is None:
         return
     if collect != "wanda":
         raise ValueError(f"unknown collect mode {collect!r}")
     flat = x.reshape(-1, x.shape[-1]).to(torch.float32)
     contrib = flat.square().sum(dim=0)
-    stats[name] = stats[name] + contrib if name in stats else contrib
+    for n in ((name,) if isinstance(name, str) else name):
+        stats[n] = stats[n] + contrib if n in stats else contrib
 
 
 def dense(lin: torch.nn.Linear, x: torch.Tensor, *, name: str = "",
@@ -81,10 +85,10 @@ def mask_bias(mask: torch.Tensor) -> torch.Tensor:
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               num_heads: int, scale: Optional[float] = None,
               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Multi-head attention as the JAX package's ``_naive`` does it
-    (ops/attention.py:92-108): scores of the scaled queries in the query
-    dtype, additive bias, float32 softmax, probs x V. (B, S, H*Dh) in and
-    out. A fused flash kernel is later work."""
+    """Multi-head attention over merged heads, (B, S, H*Dh) in and out:
+    ``ops.attention.mha`` in its naive mode, the JAX package's ``_naive``
+    (ops/attention.py:92-108) -- scores of the scaled queries in the query
+    dtype, additive bias, float32 softmax, probs x V."""
     b, sq, _ = q.shape
     sk = k.shape[1]
     dh = q.shape[-1] // num_heads
@@ -93,9 +97,5 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qh = q.reshape(b, sq, num_heads, dh).transpose(1, 2)
     kh = k.reshape(b, sk, num_heads, dh).transpose(1, 2)
     vh = v.reshape(b, sk, num_heads, dh).transpose(1, 2)
-    scores = torch.matmul(qh * scale, kh.transpose(-1, -2))
-    if bias is not None:
-        scores = scores + bias.to(scores.dtype)
-    probs = torch.softmax(scores.to(torch.float32), dim=-1).to(v.dtype)
-    out = torch.matmul(probs, vh)
-    return out.transpose(1, 2).reshape(b, sq, num_heads * dh).to(q.dtype)
+    out = mha(qh, kh, vh, sm_scale=scale, bias=bias, mode="naive")
+    return out.transpose(1, 2).reshape(b, sq, num_heads * dh)

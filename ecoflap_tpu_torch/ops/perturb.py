@@ -1,7 +1,9 @@
-"""In-place Gaussian perturbation ``w += scale * z`` for MeZO scoring.
+"""Gaussian perturbation ``w += scale * z`` (in place) and ``w + scale * z``
+(out of place) for MeZO scoring.
 
 Port of ``ecoflap_tpu/ops/perturb.py:perturb_block_inplace`` (the Pallas
-kernel ``_perturb_block_kernel``). The CUDA kernel (``csrc/perturb.cu``)
+kernel ``_perturb_block_kernel``) and of ``perturb`` (``_perturb_kernel``),
+the two entries of one CUDA source (``csrc/perturb.cu``). The kernel
 draws z from a counter-based Philox4x32-10 keyed by a 64-bit seed, counter =
 the element's linear index, and fuses the add: one read and one write of the
 weight, no noise buffer. Same seed -> same z, so ``+eps, -2eps, +eps``
@@ -9,9 +11,11 @@ restores the weight to about one rounding and ``+-eps`` is an exact
 antithetic pair.
 
 The noise differs bitwise from the TPU's PRNG (a documented deviation; MeZO
-needs i.i.d. N(0, 1) only). ``perturb_inplace_ref`` is the plain PyTorch
-version: the same Philox in int64 tensor ops, on whatever device the tensor
-lies, and what a CPU tensor takes.
+needs i.i.d. N(0, 1) only). ``perturb_ref`` and ``perturb_inplace_ref`` are
+the plain PyTorch versions: the same Philox in int64 tensor ops, on whatever
+device the tensor lies, and what a CPU tensor takes. The out-of-place form
+gives the in-place form's bits for the same seed. The MeZO path runs only
+the in-place form; the out-of-place one is the JAX package's public op.
 """
 
 from __future__ import annotations
@@ -77,16 +81,23 @@ def words_to_normal(w0: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(u2 * (2.0 * math.pi))
 
 
-def perturb_inplace_ref(w: torch.Tensor, seed: int, scale: float,
-                        words: Optional[Words] = None) -> torch.Tensor:
-    """Plain version of the kernel. ``words`` overrides the Philox words
-    (any shape that broadcasts over the flat tensor); only tests use it."""
+def perturb_ref(w: torch.Tensor, seed: int, scale: float,
+                words: Optional[Words] = None) -> torch.Tensor:
+    """Plain version of the out-of-place kernel: a new tensor, ``w`` is not
+    touched. ``words`` overrides the Philox words (any shape that broadcasts
+    over the flat tensor); only tests use it."""
     _check(w, seed)
     if words is None:
         words = philox_words_ref(w.numel(), seed, w.device)
     z = words_to_normal(*words)
     out = w.reshape(-1).to(torch.float32) + z * float(scale)
-    w.copy_(out.to(w.dtype).view_as(w))
+    return out.to(w.dtype).view(w.shape)
+
+
+def perturb_inplace_ref(w: torch.Tensor, seed: int, scale: float,
+                        words: Optional[Words] = None) -> torch.Tensor:
+    """Plain version of the in-place kernel."""
+    w.copy_(perturb_ref(w, seed, scale, words))
     return w
 
 
@@ -114,6 +125,10 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64, ctypes.c_uint64,
         ctypes.c_float, ctypes.c_void_p]
     lib.ecoflap_perturb_inplace.restype = ctypes.c_int
+    lib.ecoflap_perturb.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64,
+        ctypes.c_uint64, ctypes.c_float, ctypes.c_void_p]
+    lib.ecoflap_perturb.restype = ctypes.c_int
     lib.ecoflap_philox_words.argtypes = [
         ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_void_p]
     lib.ecoflap_philox_words.restype = ctypes.c_int
@@ -146,6 +161,34 @@ def perturb_inplace(w: torch.Tensor, seed: int, scale: float) -> torch.Tensor:
 
 
 perturb_inplace.launches = 0
+
+
+def perturb(w: torch.Tensor, seed: int, scale: float) -> torch.Tensor:
+    """``w + scale * z(seed)`` as a new tensor, on a contiguous 2-D float32 or
+    bfloat16 weight of any shape (``ecoflap_tpu/ops/perturb.py:perturb``).
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises."""
+    _check(w, seed)
+    if w.ndim != 2:
+        raise ValueError(f"perturb takes a 2-D weight, got shape {tuple(w.shape)}")
+    if w.device.type == "cpu":
+        return perturb_ref(w, seed, scale)
+    if w.device.type != "cuda":
+        raise ValueError(f"perturb: unsupported device {w.device}")
+    out = torch.empty_like(w)
+    with torch.cuda.device(w.device):
+        rc = _lib().ecoflap_perturb(
+            ctypes.c_void_p(w.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            _DTYPE_CODE[w.dtype], ctypes.c_uint64(w.numel()),
+            ctypes.c_uint64(int(seed)), ctypes.c_float(float(scale)),
+            ctypes.c_void_p(_stream(w.device)))
+    if rc != 0:
+        raise RuntimeError(f"perturb kernel launch failed: cudaError_t {rc}")
+    perturb.launches += 1
+    return out
+
+
+perturb.launches = 0
 
 
 def perturb_block_inplace(leaf: torch.Tensor, idx: int, seed: int,

@@ -4,11 +4,16 @@
 ``VITLayerWandaPruner._prune`` :499-568).
 
 Per stack: build the block-0 inputs once; then per block collect the
-per-linear sum of x^2 in one forward, prune every linear to its ratio in
-place, and re-forward the pruned block to make the next block's inputs, so
-downstream blocks calibrate against the pruned upstream (:281-285). The
-whole calibration batch rides in one forward per pass: on an 80 GB card the
-JAX package's memory chunking has nothing to save.
+per-linear sum of x^2, prune every linear to its ratio in place, and
+re-forward the pruned block to make the next block's inputs, so downstream
+blocks calibrate against the pruned upstream (:281-285).
+
+Each pass streams the batch in ``num_chunks`` slices and sums the
+statistics over them, so activation memory is one slice's; the pruner passes
+its microbatch count, as the JAX package's fine stage does by default
+(``chunked_block_apply``, pruners.py:298). LLaMA-7B needs it: 128 windows of
+2048 tokens in one forward hold two float32 copies of the ``down_proj`` input
+alone, 11.5 GB each.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch
 from torch import nn
 
 from ecoflap_tpu_torch.pruning.adapter import StackSpec
+from ecoflap_tpu_torch.pruning.mezo import slice_microbatch
 from ecoflap_tpu_torch.pruning.wanda import (
     apply_mask,
     mask_per_row,
@@ -46,12 +52,23 @@ def stream_prune_stack(
     batch: Any,
     sparsity_ratio: Mapping[str, float],
     verbose: bool = True,
+    num_chunks: int = 1,
 ) -> nn.Module:
-    """Wanda-prune one stack of ``model`` in place."""
+    """Wanda-prune one stack of ``model`` in place, ``num_chunks`` forwards
+    per pass (the count must divide the batch)."""
     prune_mask = make_wanda_prune_fn(stack.per_row_mask)
     t0 = time.time()
     x, cache = stack.prepare_inputs(model, batch)
-    n_seq = float(x.shape[0])
+    # a private contiguous copy: the passes below overwrite it slice by slice
+    x = x.clone(memory_format=torch.contiguous_format)
+    n = x.shape[0]
+    n_seq = float(n)
+    if n % num_chunks:
+        raise ValueError(f"{num_chunks} chunks do not divide the batch of {n}")
+    # views into x: each pass overwrites a slice with that slice's output,
+    # which depends on that slice's input only
+    slices = [(slice_microbatch(x, c, num_chunks, n),
+               slice_microbatch(cache, c, num_chunks, n)) for c in range(num_chunks)]
     if verbose:
         print(f"prepared inputs ({stack.name}) +{time.time() - t0:.1f}s")
     blocks = stack.blocks(model)
@@ -59,12 +76,16 @@ def stream_prune_stack(
         if verbose:
             print(f"pruning block {i} ({stack.name}) +{time.time() - t0:.1f}s")
         block = blocks[i]
-        _, stats = stack.block_forward(block, x, cache, "wanda")
+        stats = {}
+        for xc, cc in slices:
+            _, part = stack.block_forward(block, xc, cc, "wanda")
+            stats = {k: stats[k] + v if k in stats else v for k, v in part.items()}
         for local in stack.linear_names:
             w = block.get_submodule(local).weight
             ratio = float(sparsity_ratio[stack.weight_key(i, local)])
             apply_mask(w, prune_mask(w, stats[local], n_seq, ratio))
-        x, _ = stack.block_forward(block, x, cache, None)
+        for xc, cc in slices:
+            xc.copy_(stack.block_forward(block, xc, cc, None)[0])
     return model
 
 

@@ -49,7 +49,9 @@ def slice_microbatch(data: Any, b: int, num: int, batch_size: int,
                      static_keys: Sequence[str] = ()) -> Any:
     """Microbatch ``b`` of ``num`` as views: tensors whose leading dimension
     is ``batch_size`` are cut, everything else (a shared position bias, the
-    static keys) rides whole."""
+    static keys) rides whole. So a shared tensor must not lead with a
+    dimension that can equal the batch: the models give theirs a leading 1
+    (LLaMA's rotary tables are (1, 1, S, Dh), not (S, Dh))."""
     def sel(x):
         if isinstance(x, torch.Tensor):
             if x.ndim >= 1 and x.shape[0] == batch_size:

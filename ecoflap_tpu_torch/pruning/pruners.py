@@ -2,7 +2,8 @@
 (port of ``ecoflap_tpu/pruning/pruners.py`` for ``local_method="wanda"``;
 reference ``BLIPT5LayerWandaPruner``, wanda_pruner.py:660-876).
 
-Registered under the reference name ``blipt5_wanda_pruner``.
+Registered under the reference names ``blipt5_wanda_pruner`` and
+``llama_wanda_pruner``, as the JAX package registers its ``WandaPruner``.
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ def _sync(device: torch.device) -> None:
 class TwoStagePruner:
     """Args mirror the reference kwargs (layer_single_base_pruner.py:19-63).
     ``seed`` keys the coarse stage's noise; ``noise`` is the tests' hook that
-    replaces it (mezo.py). A given ``sparsity_dict`` skips the coarse stage."""
+    replaces it (mezo.py). A given ``sparsity_dict`` skips the coarse stage.
+    The fine stage forwards one microbatch at a time (engine.py)."""
 
     def __init__(
         self,
@@ -135,7 +137,8 @@ class TwoStagePruner:
                           else UniformSparsity(parse_prune_spec(spec).sparsity))
             ts = time.time()
             stream_prune_stack(stack, model, self.data, stack_dict,
-                               verbose=self.verbose)
+                               verbose=self.verbose,
+                               num_chunks=self.num_microbatches)
             _sync(dev)
             self.phase_times[f"fine_{stack.name}_s"] = time.time() - ts
         if self.verbose:
@@ -149,3 +152,4 @@ class TwoStagePruner:
 
 
 registry.register("pruner", "blipt5_wanda_pruner", TwoStagePruner)
+registry.register("pruner", "llama_wanda_pruner", TwoStagePruner)

@@ -56,6 +56,8 @@ def test_every_package_module_is_scanned():
     mods = {m.name for m in pkgutil.walk_packages([str(PKG)], "ecoflap_tpu_torch.")}
     assert "ecoflap_tpu_torch.ops.perturb" in mods
     assert "ecoflap_tpu_torch.cli.prune" in mods
+    assert "ecoflap_tpu_torch.ops.attention" in mods
+    assert "ecoflap_tpu_torch.models.llama" in mods
 
 
 def test_cli_without_cpu_request_raises_when_there_is_no_card(tmp_path):
@@ -75,3 +77,22 @@ def test_build_model_without_cpu_request_raises_when_there_is_no_card():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         blip2.build_model(blip2.tiny_config())
+
+
+def test_llama_build_model_without_cpu_request_raises_when_there_is_no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-card refusal is untestable")
+    from ecoflap_tpu_torch.models import llama
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        llama.build_model(llama.tiny_config())
+
+
+def test_llama_cli_without_cpu_request_raises_when_there_is_no_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-card refusal is untestable")
+    from ecoflap_tpu_torch.cli.prune import main
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--model", "llama", "--model_scale", "tiny",
+              "--output_dir", str(tmp_path)])

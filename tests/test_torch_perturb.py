@@ -151,3 +151,28 @@ def test_perturb_seeds_are_deterministic_64_bit_and_distinct():
     assert len(seeds) == 200
     assert all(0 <= s < 2 ** 64 for s in seeds)
     assert perturb_seed(42, 3, 1, 0) == perturb_seed(42, 3, 1, 0)
+
+
+@pytest.mark.parametrize("shape", [(64, 96), (301, 577), (1, 1), (7, 1029)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_out_of_place_equals_in_place_and_leaves_the_input(shape, dtype):
+    """``perturb`` (kernel 2's function) gives the in-place result bit for
+    bit, on any 2-D shape, and does not touch its input."""
+    w = (torch.randn(shape, generator=torch.Generator().manual_seed(1)) * 0.02).to(dtype)
+    keep = w.clone()
+    want = P.perturb_inplace_ref(w.clone(), 9, 1e-3)
+    for fn in (P.perturb_ref, P.perturb):
+        got = fn(w, 9, 1e-3)
+        assert got.dtype == dtype and got.shape == shape
+        assert torch.equal(got, want)
+        assert torch.equal(w, keep)
+
+
+def test_out_of_place_on_the_cpu_counts_no_launch_and_takes_2d_only():
+    before = P.perturb.launches
+    P.perturb(torch.zeros(5, 7), 3, 0.5)
+    assert P.perturb.launches == before
+    with pytest.raises(ValueError, match="2-D"):
+        P.perturb(torch.zeros(2, 3, 4), 3, 0.5)
+    with pytest.raises((TypeError, ValueError)):
+        P.perturb(torch.zeros(4, 4, dtype=torch.float16), 3, 0.5)

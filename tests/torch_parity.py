@@ -1,6 +1,7 @@
 """Shared set-up for the PyTorch-port parity tests (tests/test_torch_*.py):
-tiny BLIP-2 in both packages with the same weights, batches made with numpy
-from a seed, and the JAX noise draws the port's MeZO hook replays."""
+tiny BLIP-2 and tiny LLaMA in both packages with the same weights, batches
+made with numpy from a seed, and the JAX noise draws the port's MeZO hook
+replays."""
 
 import jax
 import jax.numpy as jnp
@@ -9,7 +10,9 @@ import torch
 
 from ecoflap_tpu.core.pytree import flatten_named
 from ecoflap_tpu.models import blip2 as jblip2
+from ecoflap_tpu.models import llama as jllama
 from ecoflap_tpu_torch.models import blip2 as tblip2
+from ecoflap_tpu_torch.models import llama as tllama
 from ecoflap_tpu_torch.models.convert import load_jax_params
 
 
@@ -45,6 +48,23 @@ def tiny_pair(seed=0, jax_dtype=jnp.float32, torch_dtype=torch.float32):
                                dtype=torch_dtype, seed=None)
     load_jax_params(model, flatten_named(params))
     return cfg, params, model
+
+
+def llama_pair(seed=0, **cfg_kw):
+    """Tiny LLaMA (``tiny_config(**cfg_kw)``): (cfg, JAX params, port model
+    with the same weights), float32."""
+    cfg = jllama.tiny_config(**cfg_kw)
+    params = jllama.init_params(cfg, jax.random.PRNGKey(seed))
+    model = tllama.build_model(tllama.tiny_config(**cfg_kw), device="cpu",
+                               dtype=torch.float32, seed=None)
+    load_jax_params(model, flatten_named(params))
+    return cfg, params, model
+
+
+def lm_batch(cfg, n=8, seqlen=16, seed=0):
+    """numpy LM calibration batch: ``n`` windows of ``seqlen`` token ids."""
+    rng = np.random.default_rng(seed)
+    return {"input_ids": rng.integers(2, cfg.vocab_size, size=(n, seqlen))}
 
 
 def jax_noise(key):
