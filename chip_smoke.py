@@ -2,14 +2,18 @@
 """Smoke run of the PyTorch/CUDA port (``ecoflap_tpu_torch``) on one card.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+(``--kernels-only`` stops after phase 3: the kernels' build, checks and
+times, without the prune paths and without the final result lines).
 
 Phases, in order; any failure raises and the exit code is non-zero:
   1. device line, toolkit versions, and the build of every CUDA source;
   2. each kernel against its plain PyTorch version on the card: the
      perturbation kernels (in place and out of place) at the BLIP-2
      FlanT5-XL weight shapes plus a ragged one, in bf16 and f32; the causal
-     flash-attention kernel at the LLaMA calibration shape and a short one,
-     its causality, strided inputs, and refusals of what it does not take;
+     flash-attention forward (with and without its LSE output) and backward
+     kernels at the LLaMA calibration shape and a short one, their
+     causality, strided inputs, the backward's determinism, and refusals of
+     what they do not take;
   3. kernel timing (CUDA events) beside each kernel's bound, its plain
      version and, where one exists, the PyTorch library call;
   4. the BLIP-2 path: ``ecoflap_tpu_torch.cli.prune.main`` prunes BLIP-2
@@ -20,19 +24,30 @@ Phases, in order; any failure raises and the exit code is non-zero:
      depth with the flags of scripts/llama/ecoflap_zero.sh, except one
      coarse microbatch of 8 windows (the reference scores 32), counting
      kernel launches;
-  6. the port on the card against the port on the CPU: tiny BLIP-2 in f32,
-     and a small LLaMA in bf16 on the card (flash kernel) against f32 on the
-     CPU (plain attention).
-Kernel launch counts are set to 0 just before each of phases 4 and 5 and
+  6. the LLaMA first-order path: LLaMA-7B at full width and depth with the
+     same flags and ``--score_method GradOnly_sum`` (the reference
+     LLaMA/main.py without --use_mezo), all 32 coarse windows (4
+     microbatches), counting kernel launches: every block's backward runs
+     the flash backward kernels;
+  7. the BLIP-2 first-order path: BLIP-2 FlanT5-XL with the flags of
+     scripts/blip2/ecoflap_first.py (GradMagAbs_sum), cut to 32 coarse
+     samples (the reference scores 128), counting kernel launches (none);
+  8. the port on the card against the port on the CPU: tiny BLIP-2 in f32,
+     and a small LLaMA in bf16 on the card (flash kernels) against f32 on
+     the CPU (plain attention): logits, losses and first-order sums, the
+     sums twice on the card (the same bits: they feed the allocator).
+Kernel launch counts are set to 0 just before each of phases 4 to 7 and
 read just after it. The line before the last holds the card's
 ``name, power.limit``; the last is ``{"ok": true, "device": {...}}``.
 """
 
+import argparse
 import copy
 import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -60,6 +75,8 @@ NUM_DATA_FIRST_STAGE = 32
 LLAMA_LAYERS = 32
 LLAMA_SEQLEN = 2048
 LLAMA_FIRST_STAGE = 8  # one coarse microbatch; the reference scores 32
+LLAMA_FO_FIRST_STAGE = 32  # the first-order path scores all 32, as the reference
+BLIP2_FO_FIRST_STAGE = 32  # the reference's ecoflap_first.py scores 128
 Z_ULP_TOL = 4  # CUDA logf/cosf vs PyTorch's: a few ulp at most
 BF16_MISMATCH_SHARE = 1e-4  # bf16 outputs a z ulp away from a rounding tie
 # (B, H, S, Dh): the coarse and fine chunk shape of LLaMA-7B, and a short one
@@ -83,6 +100,27 @@ FLASH_MEAN_ABS = 2e-3
 # the error measured on the H100 (1.4e-4).
 LLAMA_LOGITS_REL = 3e-2
 LLAMA_LOSS_RTOL = 1e-3
+# flash backward kernels (bf16 out) vs plain version (float32 throughout,
+# one rounding to bf16). Per element the output rounding alone can put the
+# two one bf16 ulp apart (2^-8 relative, 0.0156 at |g| in [2, 4)), and the
+# gradients' largest entries are of that size: so the forward's 2e-2 of
+# max(1, |plain|). Most entries are far smaller (RMS ~0.08 at N(0, 1)
+# inputs), so a relative L2 gate carries the check: the kernels round P and
+# dS to bf16 before their products (2^-9 relative per term, independent
+# over the 64-2048 terms of a sum) and round each output once more, about
+# 3e-3 in all; 1e-2 leaves 3x. The LSE is float32 on both sides, the same
+# scores summed in another order and through exp2/log2: 1e-4 absolute on
+# values up to ~10 is some 100 float32 ulps.
+FLASH_BWD_MAX_REL = 2e-2
+FLASH_BWD_REL_L2 = 1e-2
+FLASH_LSE_MAX_ABS = 1e-4
+# small LLaMA first-order GradOnly sums, bf16 card vs f32 CPU: each sum adds
+# |g| over 65,536-176,128 entries, which averages the per-entry bf16 error
+# (of the order of the logits' 1e-2) down to its systematic part; that part
+# comes from the same roundings and is a fraction of it. A backward that
+# attends to the wrong keys or drops sm_scale moves the attention weights'
+# sums by O(1).
+LLAMA_GRAD_SUMS_RTOL = 1e-2
 
 
 def log(*a):
@@ -209,7 +247,54 @@ def check_flash(A, torch, shape):
     assert views[2].stride() == (s * h * dh, dh, h * dh, 1)
     assert torch.equal(A.flash_attention(*views, scale), out), \
         f"flash {shape}: strided inputs give other bits"
-    return max_abs, mean_abs, rel
+    out2, lse = A.flash_attention_lse(q, k, v, scale)
+    assert torch.equal(out2, out), f"flash {shape}: the LSE output moved the output"
+    lse_err = max((lse[i:i + 1] - A.flash_attention_lse_ref(
+        q[i:i + 1], k[i:i + 1], v[i:i + 1], scale)[1]).abs().max().item()
+        for i in range(b))
+    assert lse_err <= FLASH_LSE_MAX_ABS, f"flash {shape}: LSE off by {lse_err}"
+    return max_abs, mean_abs, rel, lse_err
+
+
+def check_flash_bwd(A, torch, shape):
+    """The backward kernels against their plain version, one batch element
+    at a time (the plain version holds float32 (H, S, S) tensors), on the
+    kernel's own forward output and LSE; the strided (model-layout) inputs
+    give the same bits, and so does a second call (no atomics)."""
+    q, k, v = qkv(torch, shape, sum(shape) + 1)
+    do = qkv(torch, shape, sum(shape) + 2)[0]
+    scale = shape[-1] ** -0.5
+    out, lse = A.flash_attention_lse(q, k, v, scale)
+    grads = A.flash_attention_bwd(q, k, v, out, lse, do, scale)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(g).all() for g in grads), f"flash bwd {shape}: non-finite"
+    again = A.flash_attention_bwd(q, k, v, out, lse, do, scale)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again)), \
+        f"flash bwd {shape}: two calls differ"
+    del again
+    names = ("dq", "dk", "dv")
+    diff2, ref2 = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0.0)
+    max_abs, max_rel = 0.0, 0.0
+    for i in range(shape[0]):
+        sl = slice(i, i + 1)
+        ref = A.flash_attention_bwd_ref(q[sl], k[sl], v[sl], out[sl], lse[sl], do[sl], scale)
+        for n, g, r in zip(names, grads, ref):
+            r = r.float()
+            d = g[sl].float() - r
+            diff2[n] += d.square().sum().item()
+            ref2[n] += r.square().sum().item()
+            max_abs = max(max_abs, d.abs().max().item())
+            max_rel = max(max_rel, (d.abs() / r.abs().clamp_min(1.0)).max().item())
+        del ref
+    rel_l2 = {n: math.sqrt(diff2[n] / ref2[n]) for n in names}
+    assert max_rel <= FLASH_BWD_MAX_REL, f"flash bwd {shape}: max rel err {max_rel}"
+    assert max(rel_l2.values()) <= FLASH_BWD_REL_L2, f"flash bwd {shape}: {rel_l2}"
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v, out, do)]
+    strided = A.flash_attention_bwd(*views[:4], lse, views[4], scale)
+    assert all(torch.equal(a, b) for a, b in zip(strided, grads)), \
+        f"flash bwd {shape}: strided inputs give other bits"
+    torch.cuda.synchronize()
+    return max_abs, max_rel, rel_l2
 
 
 def check_flash_causal_and_refusals(A, torch):
@@ -239,8 +324,35 @@ def check_flash_causal_and_refusals(A, torch):
     refuses(ValueError, lambda: A.flash_attention(d64, d64, d64, 1.0))
     f32 = torch.zeros(1, 2, 512, 128, device="cuda")
     refuses(TypeError, lambda: A.flash_attention(f32, f32, f32, 1.0))
-    grad = f32.to(torch.bfloat16).requires_grad_()
-    refuses(NotImplementedError, lambda: A.flash_attention(grad, grad, grad, 1.0))
+    lse32 = torch.zeros(1, 2, 512, device="cuda")
+    refuses(TypeError, lambda: A.flash_attention_bwd(f32, f32, f32, f32, lse32, f32, 1.0))
+    bad_lse = torch.zeros(1, 2, 100, device="cuda")
+    refuses(ValueError, lambda: A.flash_attention_bwd(bad, bad, bad, bad, bad_lse, bad, 1.0))
+    lse64 = torch.zeros(1, 2, 512, device="cuda")
+    refuses(ValueError, lambda: A.flash_attention_bwd(d64, d64, d64, d64, lse64, d64, 1.0))
+    torch.cuda.synchronize()
+
+
+def check_flash_bwd_causal_and_grad(A, torch):
+    """dO zero on query rows >= r: key rows >= r of dK and dV, and query
+    rows >= r of dQ, are exactly 0. And an input that requires grad is
+    served: ``flash_attention`` gives the no-grad output's bits, and its
+    backward the kernels' dq, dk, dv."""
+    shape, r = (2, 4, 512, 128), 300
+    q, k, v = qkv(torch, shape, 12)
+    do = qkv(torch, shape, 13)[0]
+    do[:, :, r:] = 0
+    out, lse = A.flash_attention_lse(q, k, v, 0.1)
+    dq, dk, dv = A.flash_attention_bwd(q, k, v, out, lse, do, 0.1)
+    for name, g in (("dq", dq), ("dk", dk), ("dv", dv)):
+        assert torch.count_nonzero(g[:, :, r:]) == 0, f"flash bwd is not causal ({name})"
+        assert torch.count_nonzero(g[:, :, :r]) > 0, name
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = A.flash_attention(*leaves, 0.1)
+    assert got.requires_grad and torch.equal(got.detach(), out)
+    grads = torch.autograd.grad(got, leaves, grad_outputs=do)
+    assert all(torch.equal(a, b) for a, b in zip(grads, (dq, dk, dv))), \
+        "the autograd Function's backward differs from the kernels'"
     torch.cuda.synchronize()
 
 
@@ -304,6 +416,43 @@ def time_flash(A, torch, shape):
     ops = 2 * 2 * b * h * dh * s * (s + 1) / 2
     nbytes = 4 * b * h * s * dh * q.element_size()
     return {"shape": list(shape), "ms": (k1 + k2) / 2, "library_ms": (l1 + l2) / 2,
+            "plain_ms": plain, "ops_bound_ms": ops / BF16_OPS_PER_S * 1e3,
+            "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def time_flash_bwd(A, torch, shape):
+    """The backward (Di, dK/dV and dQ: one ``flash_attention_bwd`` call)
+    against the library's backward, ``scaled_dot_product_attention``'s
+    forward plus backward less its forward (both with grad), in turns, and
+    the plain version. The bound counts five products over the causal half
+    (S, dP, dV, dK, dQ), 2.5x the forward's operations; bytes are q, k, v,
+    o, dO and the float32 LSE read once and dq, dk, dv written once."""
+    import torch.nn.functional as F
+
+    b, h, s, dh = shape
+    q, k, v = qkv(torch, shape, 5)
+    do = qkv(torch, shape, 6)[0]
+    scale = dh ** -0.5
+    out, lse = A.flash_attention_lse(q, k, v, scale)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    kernel = lambda: A.flash_attention_bwd(q, k, v, out, lse, do, scale)  # noqa: E731
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(*leaves, is_causal=True, scale=scale)
+
+    def lib_fwd_bwd():
+        torch.autograd.grad(lib_fwd(), leaves, grad_outputs=do)
+
+    k1 = time_cuda(torch, kernel, 20)
+    f1, l1 = time_cuda(torch, lib_fwd, 20), time_cuda(torch, lib_fwd_bwd, 20)
+    l2, f2 = time_cuda(torch, lib_fwd_bwd, 20), time_cuda(torch, lib_fwd, 20)
+    k2 = time_cuda(torch, kernel, 20)
+    plain = time_cuda(torch, lambda: A.flash_attention_bwd_ref(
+        q, k, v, out, lse, do, scale), 2)
+    ops = 5 * 2 * b * h * dh * s * (s + 1) / 2
+    nbytes = 8 * b * h * s * dh * q.element_size() + b * h * s * lse.element_size()
+    return {"shape": list(shape), "ms": (k1 + k2) / 2,
+            "library_ms": (l1 + l2 - f1 - f2) / 2, "library_fwd_bwd_ms": (l1 + l2) / 2,
             "plain_ms": plain, "ops_bound_ms": ops / BF16_OPS_PER_S * 1e3,
             "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
 
@@ -387,7 +536,41 @@ def small_llama_check(torch):
     loss_rel = ((lg - lc).abs() / lc.abs()).max().item()
     assert loss_rel < LLAMA_LOSS_RTOL, \
         f"small LLaMA loss card (bf16) vs CPU (f32): rel {loss_rel}"
-    return logits_rel, loss_rel
+    grad_rel = small_llama_grad_sums(torch, llama, A, cfg, cpu_model, ids)
+    return logits_rel, loss_rel, grad_rel
+
+
+def small_llama_grad_sums(torch, llama, A, cfg, cpu_model, ids):
+    """GradOnly first-order sums of the small LLaMA, 2 microbatches through
+    the streamed per-block backward: bf16 on the card (flash forward and
+    backward kernels, the card's lm_head product) against f32 on the CPU,
+    and a second card run that must give the same bits. Returns the worst
+    relative difference over the 14 targets."""
+    from ecoflap_tpu_torch.pruning.first_order import first_order_group_sums
+
+    sums = {}
+    for dev, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        model = copy.deepcopy(cpu_model).to(dev, dtype)
+        batch = {"input_ids": ids.to(dev)}
+        ad = llama.make_adapter(model)
+        before = A.flash_attention_bwd.launches
+        sums[dev] = first_order_group_sums(ad.loss_fn, model, batch, 2, ad.targets(),
+                                           "GradOnly", plans=ad.build_mezo_plans(model, batch))
+        if dev == "cuda":
+            assert A.flash_attention_bwd.launches - before == 2 * cfg.num_layers, \
+                "the small LLaMA's backward did not run the flash backward kernels"
+            # the sums feed the allocator: a second run must give the same dict
+            again = first_order_group_sums(ad.loss_fn, model, batch, 2, ad.targets(),
+                                           "GradOnly",
+                                           plans=ad.build_mezo_plans(model, batch))
+            assert again == sums[dev], "two first-order runs on the card differ"
+    card, cpu = sums["cuda"], sums["cpu"]
+    assert len(card) == 7 * cfg.num_layers
+    assert all(math.isfinite(v) and v > 0 for v in card.values())
+    grad_rel = max(abs(card[k] - cpu[k]) / cpu[k] for k in cpu)
+    assert grad_rel < LLAMA_GRAD_SUMS_RTOL, \
+        f"small LLaMA GradOnly sums card (bf16) vs CPU (f32): rel {grad_rel}"
+    return grad_rel
 
 
 def reset_counts(kernels):
@@ -420,12 +603,15 @@ def log_path(name, res, wall, counts):
         + f" | peak {res['peak_gib']:.2f} GiB | launches {counts}")
 
 
-def check_scores_and_dict(read_flat_yaml, res, n_targets, cap, target):
+def check_scores_and_dict(read_flat_yaml, res, n_targets, cap, target, distinct=False):
+    """MeZO scores (whole numbers of loss ulps, so some repeat) or first-order
+    sums (``distinct``: every one differs) and the sparsity dict."""
     scores = res["leaf_scores"]
     vals = list(scores.values())
     assert len(vals) == n_targets, len(vals)
-    assert all(math.isfinite(v) and v >= 0 for v in vals), "bad MeZO scores"
-    assert len(set(vals)) > 1, "all MeZO scores equal"
+    assert all(math.isfinite(v) and v >= 0 for v in vals), "bad coarse scores"
+    assert len(set(vals)) == n_targets if distinct else len(set(vals)) > 1, \
+        "coarse scores not distinct"
     sd = read_flat_yaml(res["sparsity_dict"])
     assert len(sd) == n_targets and set(sd) == set(scores), "sparsity dict keys"
     assert max(sd.values()) <= cap + 1e-9, max(sd.values())
@@ -433,7 +619,11 @@ def check_scores_and_dict(read_flat_yaml, res, n_targets, cap, target):
     return vals, sd
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="stop after phase 3 (build, kernel checks, timing)")
+    args = parser.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -446,7 +636,8 @@ def main() -> int:
     from ecoflap_tpu_torch.ops import perturb as P
 
     kernels = {"perturb_inplace": P.perturb_inplace, "perturb": P.perturb,
-               "flash_attention": A.flash_attention}
+               "flash_attention": A.flash_attention,
+               "flash_attention_bwd": A.flash_attention_bwd}
     t_start = time.time()
 
     # -- 1. device and build --------------------------------------------------
@@ -457,9 +648,13 @@ def main() -> int:
     built = build.build()
     log(f"kernel build: {time.time() - t0:.2f} s for {sorted(built)}")
     for name, (lib, ptxas) in built.items():
+        kernel = name
         for line in ptxas.splitlines():
+            if "Compiling entry function" in line:  # a mangled name follows
+                found = re.search(r"\d([a-z][a-z_]*_kernel)", line)
+                kernel = found.group(1) if found else name
             if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+                log(f"  {name} {kernel}: {line.strip()}")
 
     # -- 2. kernel vs plain ---------------------------------------------------
     worst_err, worst_ulp = 0.0, 0.0
@@ -482,10 +677,23 @@ def main() -> int:
         log(f"flash_attention vs plain {shape}: max |err| {flash_err[shape][0]:.4g}, "
             f"mean |err| {flash_err[shape][1]:.3e}, max err / max(1, |plain|) "
             f"{flash_err[shape][2]:.4g} (gates {FLASH_MAX_REL}, {FLASH_MEAN_ABS}); "
-            f"strided inputs bit-identical")
+            f"strided inputs bit-identical; LSE output leaves the output's bits, "
+            f"max |LSE err| {flash_err[shape][3]:.3e} (gate {FLASH_LSE_MAX_ABS})")
+    bwd_err = {}
+    for shape in FLASH_SHAPES:
+        bwd_err[shape] = check_flash_bwd(A, torch, shape)
+        max_abs, max_rel, rel_l2 = bwd_err[shape]
+        log(f"flash_attention_bwd vs plain {shape}: max |err| {max_abs:.4g}, max err / "
+            f"max(1, |plain|) {max_rel:.4g} (gate {FLASH_BWD_MAX_REL}), relative L2 "
+            + ", ".join(f"{n} {v:.3e}" for n, v in rel_l2.items())
+            + f" (gate {FLASH_BWD_REL_L2}); strided inputs and a second call "
+            "bit-identical")
     check_flash_causal_and_refusals(A, torch)
-    log("flash_attention: causal (rows <= r bit-identical when keys > r change); "
-        "ineligible shapes, float32 and inputs that require grad are refused")
+    check_flash_bwd_causal_and_grad(A, torch)
+    log("flash_attention: causal forward (rows <= r bit-identical when keys > r "
+        "change) and backward (rows >= r exactly 0 when dO is 0 there); an input "
+        "that requires grad is served through the kernels; ineligible shapes and "
+        "float32 are refused, forward and backward")
 
     # -- 3. timing --------------------------------------------------------------
     timings = {}
@@ -510,6 +718,18 @@ def main() -> int:
         f"library scaled_dot_product_attention {flash_t['library_ms']:.4f} ms")
     gc.collect()
     torch.cuda.empty_cache()
+    bwd_t = time_flash_bwd(A, torch, FLASH_SHAPES[0])
+    bb, bby = bound(bwd_t)
+    log(f"flash_attention_bwd {tuple(bwd_t['shape'])}: kernels {bwd_t['ms']:.4f} ms | "
+        f"bound {bb:.4f} ms ({bby}; ops {bwd_t['ops_bound_ms']:.4f}, bytes "
+        f"{bwd_t['bytes_bound_ms']:.4f}) | plain {bwd_t['plain_ms']:.3f} ms | library "
+        f"scaled_dot_product_attention backward {bwd_t['library_ms']:.4f} ms "
+        f"(forward + backward {bwd_t['library_fwd_bwd_ms']:.4f} ms)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    if args.kernels_only:
+        log(f"chip_smoke --kernels-only: {time.time() - t_start:.1f} s in all")
+        return 0
 
     from ecoflap_tpu_torch.cli import prune as cli
     from ecoflap_tpu_torch.runners.runner import read_flat_yaml
@@ -567,14 +787,58 @@ def main() -> int:
         f"global sparsity {res['prunable_sparsity']}")
     del res
 
-    # -- 6. card vs CPU ------------------------------------------------------------
+    # -- 6. LLaMA first-order path ---------------------------------------------------
+    argv[argv.index("--score_method") + 1] = "GradOnly_sum"
+    argv[argv.index("--num_data_first_stage") + 1] = str(LLAMA_FO_FIRST_STAGE)
+    res, wall, llama_fo_counts = run_path(cli, kernels, argv)
+    log_path("LLaMA-7B first-order", res, wall, llama_fo_counts)
+    fo_mb = LLAMA_FO_FIRST_STAGE // BATCH_SIZE
+    # coarse, per microbatch: the stack's forward and each block's recompute
+    # under grad, and one backward per block; fine as in phase 5
+    want_fo = {"flash_attention": 2 * LLAMA_LAYERS * fo_mb
+               + 2 * LLAMA_LAYERS * (NUM_SAMPLES // BATCH_SIZE),
+               "flash_attention_bwd": LLAMA_LAYERS * fo_mb, "perturb_inplace": 0,
+               "perturb": 0}
+    assert llama_fo_counts == want_fo, (llama_fo_counts, want_fo)
+    vals, sd = check_scores_and_dict(read_flat_yaml, res, n_targets, 0.7, 0.6,
+                                     distinct=True)
+    assert sd.keys() == {f"model.layers.{i}.{n}.weight" for i in range(LLAMA_LAYERS)
+                         for n in LLAMA_LINEARS}, "LLaMA sparsity dict keys"
+    log(f"LLaMA-7B first-order path checks pass: {llama_fo_counts['flash_attention']} "
+        f"flash forward and {llama_fo_counts['flash_attention_bwd']} flash backward "
+        f"launches, no perturb launch, {n_targets} distinct finite sums in "
+        f"[{min(vals):.4g}, {max(vals):.4g}], ratios <= {max(sd.values()):.4f}, global "
+        f"sparsity {res['prunable_sparsity']}, peak {res['peak_gib']:.2f} GiB")
+    del res
+
+    # -- 7. BLIP-2 first-order path --------------------------------------------------
+    argv = ["--model", "blip2_t5", "--model_scale", "full", "--seed", str(SEED),
+            "--pruning_method", "blipt5_wanda_pruner",
+            "--vit_prune_spec", "39-0.5-1.0-1.0", "--t5_prune_spec", "24-0.5-1.0-1.0",
+            "--sparsity_ratio_granularity", "block",
+            "--score_method", "GradMagAbs_sum", "--max_sparsity_per_layer", "0.6",
+            "--num_data_first_stage", str(BLIP2_FO_FIRST_STAGE),
+            "--num_samples", str(NUM_SAMPLES), "--batch_size", str(BATCH_SIZE),
+            "--calib", "synthetic", "--output_dir", out_dir]
+    res, wall, blip_fo_counts = run_path(cli, kernels, argv)
+    log_path("BLIP-2 first-order", res, wall, blip_fo_counts)
+    assert not any(blip_fo_counts.values()), blip_fo_counts
+    vals, sd = check_scores_and_dict(read_flat_yaml, res, 588, 0.6, 0.5, distinct=True)
+    log(f"BLIP-2 first-order path checks pass: no kernel launch, 588 distinct finite "
+        f"sums in [{min(vals):.4g}, {max(vals):.4g}], ratios <= {max(sd.values()):.4f}, "
+        f"global sparsity {res['prunable_sparsity']}, peak {res['peak_gib']:.2f} GiB")
+    del res
+
+    # -- 8. card vs CPU ------------------------------------------------------------
     lerr, serr = small_reference_check(torch)
     log(f"tiny BLIP-2 card vs CPU: loss rel err {lerr:.2e}, MeZO score err beyond "
         f"rtol 1e-3 {serr:.2e}")
-    logits_rel, loss_rel = small_llama_check(torch)
-    log(f"small LLaMA bf16 card (flash kernel) vs f32 CPU: logits relative L2 "
+    logits_rel, loss_rel, grad_rel = small_llama_check(torch)
+    log(f"small LLaMA bf16 card (flash kernels) vs f32 CPU: logits relative L2 "
         f"{logits_rel:.3e} (gate {LLAMA_LOGITS_REL}), per-sample loss rel err "
-        f"{loss_rel:.3e} (gate {LLAMA_LOSS_RTOL})")
+        f"{loss_rel:.3e} (gate {LLAMA_LOSS_RTOL}), GradOnly sums rel err "
+        f"{grad_rel:.3e} (gate {LLAMA_GRAD_SUMS_RTOL}), bit-identical over two "
+        f"card runs")
 
     # per launch, launch-weighted over both paths' targets (BLIP-2: 3 launches
     # per target and microbatch; LLaMA likewise)
@@ -591,8 +855,10 @@ def main() -> int:
                            "ops_bound_ms": avg("ops_bound_ms")})
     o_bound, o_by = bound({k: sum(t[k] for t in oop_t) / len(oop_t)
                            for k in ("bytes_bound_ms", "ops_bound_ms")})
-    launches = {k: blip_counts[k] + llama_counts[k] for k in kernels}
-    by_path = {k: {"blip2_t5": blip_counts[k], "llama": llama_counts[k]} for k in kernels}
+    paths = {"blip2_t5": blip_counts, "llama": llama_counts,
+             "llama_first_order": llama_fo_counts, "blip2_t5_first_order": blip_fo_counts}
+    by_path = {k: {p: c[k] for p, c in paths.items()} for k in kernels}
+    launches = {k: sum(by_path[k].values()) for k in kernels}
     log(json.dumps({"kernels": [
         {"name": "perturb_inplace", "route": "cuda",
          "source": "ecoflap_tpu_torch/csrc/perturb.cu",
@@ -617,6 +883,15 @@ def main() -> int:
          "max_abs_err": flash_err[FLASH_SHAPES[0]][0],
          "ms": flash_t["ms"], "plain_ms": flash_t["plain_ms"],
          "bound_ms": fb, "bound_by": fby, "library_ms": flash_t["library_ms"]},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "ecoflap_tpu_torch/csrc/flash_attn_bwd.cu",
+         "replaces": "ecoflap_tpu/ops/attention.py:189",
+         "replaces_library_kernels": ["_flash_attention_bwd_dkv", "_flash_attention_bwd_dq"],
+         "launches": launches["flash_attention_bwd"],
+         "launches_by_path": by_path["flash_attention_bwd"],
+         "max_abs_err": bwd_err[FLASH_SHAPES[0]][0],
+         "ms": bwd_t["ms"], "plain_ms": bwd_t["plain_ms"],
+         "bound_ms": bb, "bound_by": bby, "library_ms": bwd_t["library_ms"]},
     ]}))
     log(f"chip_smoke: {time.time() - t_start:.1f} s in all")
     log(smi)

@@ -16,6 +16,23 @@ arguments carry over:
       --max_sparsity_per_layer 0.7 --num_data_first_stage 32 \\
       --num_samples 128 --batch_size 8 --seqlen 2048
 
+and the first-order coarse stage in place of MeZO, LLaMA-7B with the
+reference ``LLaMA/main.py --score_method GradOnly`` (no ``--use_mezo``) and
+BLIP-2 with ``scripts/blip2/ecoflap_first.py``'s flags:
+
+  python -m ecoflap_tpu_torch.cli.prune --model llama --model_scale full \\
+      --pruning_method llama_wanda_pruner --prune_spec 32-0.4-1.0-1.0 \\
+      --sparsity_ratio_granularity block --score_method GradOnly_sum \\
+      --max_sparsity_per_layer 0.7 --num_data_first_stage 32 \\
+      --num_samples 128 --batch_size 8 --seqlen 2048
+
+  python -m ecoflap_tpu_torch.cli.prune --model blip2_t5 --model_scale full \\
+      --pruning_method blipt5_wanda_pruner \\
+      --vit_prune_spec 39-0.5-1.0-1.0 --t5_prune_spec 24-0.5-1.0-1.0 \\
+      --sparsity_ratio_granularity block --score_method GradMagAbs_sum \\
+      --max_sparsity_per_layer 0.6 --num_data_first_stage 128 \\
+      --num_samples 128 --batch_size 8
+
 Runs on the card unless ``--device cpu``. The model is randomly initialised
 from ``--seed`` at ``--model_scale``; calibration is synthetic (for LLaMA the
 JAX CLI's token stream, so both CLIs cut the same windows for one seed).

@@ -1,5 +1,8 @@
-// Causal flash attention, forward only, on Hopper's tensor cores:
+// Causal flash attention, forward, on Hopper's tensor cores:
 //     O = softmax(mask_causal(Q K^T * sm_scale)) V
+// and, when asked for, the row log-sum-exp the backward needs
+// (csrc/flash_attn_bwd.cu):
+//     LSE = log(sum_j exp(mask_causal(Q K^T * sm_scale)_j)), float32, natural log
 // for bf16 Q, K, V, O of shape (B, H, S, 128), with S % 64 == 0 and one
 // shared sequence for queries and keys (row r sees keys 0..r).
 //
@@ -9,7 +12,10 @@
 // accumulator are float32; sm_scale multiplies the float32 scores (not the
 // bf16 queries); masked scores take the finite value -0.7 * FLT_MAX (the TPU
 // library's DEFAULT_MASK_VALUE), so no inf - inf appears; key tiles that lie
-// wholly above the diagonal are never loaded.
+// wholly above the diagonal are never loaded. The library's separate
+// residuals l and m (kept for its backward) are one tensor here,
+// LSE = m + log l, stored in natural-log units whatever base the kernel
+// computes in; the backward and both plain versions read it so.
 //
 // Design (FlashAttention-2 forward, mma.sync):
 //   * one CTA per (64-row query tile, b * H + h), 4 warps, each warp owning
@@ -24,7 +30,9 @@
 //     rounded to bf16 for the PV product (as FlashAttention-2 does); the
 //     row sum is taken over the float32 P;
 //   * online softmax in base 2: x = s * sm_scale * log2(e), running max m,
-//     alpha = 2^(m_old - m_new); one division by the row sum at the end.
+//     alpha = 2^(m_old - m_new); one division by the row sum at the end,
+//     and LSE = (m + log2(l)) * ln(2) when the lse pointer is not null (the
+//     forward without a gradient passes null and writes nothing more).
 // Inputs and the output take any strides whose last dimension is
 // contiguous, so the model's (B, S, H, Dh) -> (B, H, S, Dh) views are read
 // in place without a copy.
@@ -55,6 +63,7 @@ constexpr int kTile = kBlockM * kRow;  // elements of one staged tile
 constexpr int kSmemBytes = 5 * kTile * static_cast<int>(sizeof(__nv_bfloat16));
 constexpr float kMaskValue = -0.7f * FLT_MAX;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 static_assert(kBlockM == kBlockN, "the diagonal tile test assumes square tiles");
 
@@ -134,8 +143,8 @@ struct Strides {
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                 Strides qs, Strides ks, Strides vs, Strides os, int num_heads,
-                 float scale_log2) {
+                 float* __restrict__ lse, Strides qs, Strides ks, Strides vs, Strides os,
+                 int num_heads, float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sK = sQ + kTile;
@@ -277,7 +286,15 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 
   float inv[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) inv[i] = 1.f / quad_sum(l_run[i]);
+  for (int i = 0; i < 2; ++i) {
+    const float l = quad_sum(l_run[i]);
+    inv[i] = 1.f / l;
+    if (lse != nullptr && t == 0) {
+      const int64_t row = q0 + warp * 16 + g + 8 * i;
+      lse[static_cast<int64_t>(blockIdx.y) * gridDim.x * kBlockM + row] =
+          (m_run[i] + log2f(l)) * kLn2;
+    }
+  }
   __nv_bfloat16* og = o + b * os.b + h * os.h + (q0 + warp * 16 + g) * os.s;
 #pragma unroll
   for (int d = 0; d < kDh / 8; ++d) {
@@ -294,13 +311,14 @@ extern "C" {
 
 // q, k, v, o: bf16 (B, H, S, 128) with the given element strides (batch,
 // head, sequence); the head dimension is contiguous and every row starts on
-// a 16-byte boundary (the wrapper checks both). Returns cudaGetLastError()
-// after the launch (0 = cudaSuccess).
-int ecoflap_flash_attn_fwd(const void* q, const void* k, const void* v, void* o, int batch,
-                           int heads, int seq, int head_dim, int64_t qsb, int64_t qsh,
-                           int64_t qss, int64_t ksb, int64_t ksh, int64_t kss, int64_t vsb,
-                           int64_t vsh, int64_t vss, int64_t osb, int64_t osh, int64_t oss,
-                           float sm_scale, void* stream) {
+// a 16-byte boundary (the wrapper checks both). lse: null, or a contiguous
+// float32 (B, H, S) output. Returns cudaGetLastError() after the launch
+// (0 = cudaSuccess).
+int ecoflap_flash_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                           int batch, int heads, int seq, int head_dim, int64_t qsb,
+                           int64_t qsh, int64_t qss, int64_t ksb, int64_t ksh, int64_t kss,
+                           int64_t vsb, int64_t vsh, int64_t vss, int64_t osb, int64_t osh,
+                           int64_t oss, float sm_scale, void* stream) {
   if (head_dim != kDh || seq <= 0 || seq % kBlockM != 0 || batch <= 0 || heads <= 0 ||
       static_cast<int64_t>(batch) * heads > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -313,8 +331,8 @@ int ecoflap_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
   flash_fwd_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      Strides{qsb, qsh, qss}, Strides{ksb, ksh, kss}, Strides{vsb, vsh, vss},
-      Strides{osb, osh, oss}, heads, sm_scale * kLog2e);
+      static_cast<float*>(lse), Strides{qsb, qsh, qss}, Strides{ksb, ksh, kss},
+      Strides{vsb, vsh, vss}, Strides{osb, osh, oss}, heads, sm_scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 

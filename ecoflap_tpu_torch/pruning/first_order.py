@@ -1,0 +1,188 @@
+"""First-order importance sums, the gradient variant of the ECoFLaP coarse
+stage (port of ``first_order_group_sums`` and ``streamed_plan_grad_sums`` in
+``ecoflap_tpu/pruning/first_order.py``; reference
+``LayerSparsity.compute_importance_scores``,
+layer_single_base_pruner.py:416-471).
+
+Per calibration microbatch, the gradient of the microbatch's mean loss with
+respect to each target weight is reduced at once to one float32 scalar per
+target, and the scalars are averaged over the microbatches:
+
+  GradOnly:       sum |g|
+  GradMagAbs:     sum |W| |g|
+  GradMagSquare:  sum W^2 g^2
+
+which is the sum over the tensor of the reference's per-element importance
+(its |g| or g^2 sums are per batch, so the outer mean commutes with the
+inner sum).
+
+One implementation, the JAX package's streamed per-block backward: for each
+stack that has a suffix plan, per microbatch,
+
+  1. forward the stack without grad, keeping every block's input;
+  2. take the cotangent of the stack's output, d mean(finish_fn) / dy;
+  3. for blocks L-1 .. 0, recompute the block with grad on its input and on
+     its target weights only, and get (g_x, g_W...) from the VJP;
+  4. reduce each g_W to its scalar on the device, into an (L, k)
+     accumulator read back once per stack.
+
+So no gradient larger than one block's weights ever exists, and the memory
+held is the L block inputs of one microbatch. The JAX package proves these
+sums equal its partitioned ``jax.grad`` default (tests/test_scores.py). Targets
+that no plan matches take one plain backward over the whole loss per
+microbatch (the JAX ``rest`` path). The model is frozen (``build_model``):
+each target weight takes ``requires_grad`` only for its own backward. Both
+paths enable grad themselves, so they run under a caller's ``no_grad`` (the
+CLI prunes under one).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Dict, Iterable, List, Optional, Sequence
+
+import torch
+from torch import nn
+
+from ecoflap_tpu_torch.pruning.mezo import LossFn, slice_microbatch
+from ecoflap_tpu_torch.pruning.plans import leading_dim
+from ecoflap_tpu_torch.pruning.targets import WeightTarget
+
+SCORE_COMPUTES = ("GradOnly", "GradMagAbs", "GradMagSquare")
+
+
+def _scalar_stat(g: torch.Tensor, w: torch.Tensor, score_compute: str) -> torch.Tensor:
+    """Per-tensor importance sum of one (gradient, weight) pair, a float32
+    0-dim tensor on their device (first_order.py:85-95)."""
+    g = g.to(torch.float32)
+    square = score_compute == "GradMagSquare"
+    g = g * g if square else g.abs()
+    if score_compute == "GradOnly":
+        return g.sum()
+    w = w.to(torch.float32)
+    w = w * w if square else w.abs()
+    return (w * g).sum()
+
+
+@contextlib.contextmanager
+def _requiring_grad(tensors: Iterable[torch.Tensor]):
+    """Turn ``requires_grad`` on for ``tensors`` and restore each flag after."""
+    tensors = list(tensors)
+    flags = [t.requires_grad for t in tensors]
+    try:
+        for t in tensors:
+            t.requires_grad_(True)
+        yield
+    finally:
+        for t, f in zip(tensors, flags):
+            t.requires_grad_(f)
+
+
+@torch.enable_grad()
+def streamed_plan_grad_sums(model: nn.Module, data: Any, num_microbatches: int,
+                            plan: Any, score_compute: str) -> Dict[str, float]:
+    """Summed scalar stats of every linear of one stack, per microbatch,
+    through the per-block VJP (first_order.py:98-203). ``plan`` is a
+    ``SuffixPlan``: its ``stack``, ``finish_fn``, ``base_data`` and
+    ``batch_size`` are read, its MeZO cache is not built. Returns
+    {weight key: sum over microbatches} (not yet divided)."""
+    stack = plan.stack
+    blocks = stack.blocks(model)
+    batch_size = leading_dim(data)
+    acc: Optional[torch.Tensor] = None  # (L, k) float32 on the device
+    for b in range(num_microbatches):
+        mb = slice_microbatch(data, b, num_microbatches, batch_size)
+        d = slice_microbatch(plan.base_data, b, num_microbatches, plan.batch_size)
+        with torch.no_grad():
+            x, cache = stack.prepare_inputs(model, mb)
+            xs: List[Optional[torch.Tensor]] = []
+            for blk in blocks:
+                xs.append(x)
+                x, _ = stack.block_forward(blk, x, cache, None)
+        y = x.requires_grad_(True)
+        (g,) = torch.autograd.grad(plan.finish_fn(model, y, d).mean(), y)
+        del y, x
+        per_block: List[Optional[torch.Tensor]] = [None] * stack.num_blocks
+        for i in range(stack.num_blocks - 1, -1, -1):
+            ws = [blocks[i].get_submodule(ln).weight for ln in stack.linear_names]
+            x_in = xs[i]
+            xs[i] = None
+            if i > 0:  # block 0's input takes no gradient
+                x_in.requires_grad_(True)
+            with _requiring_grad(ws):
+                out, _ = stack.block_forward(blocks[i], x_in, cache, None)
+                grads = torch.autograd.grad(
+                    out, ws + ([x_in] if i > 0 else []), grad_outputs=g.to(out.dtype))
+            per_block[i] = torch.stack([
+                _scalar_stat(gw, w, score_compute) for gw, w in zip(grads, ws)])
+            g = grads[-1] if i > 0 else None
+            del out, grads, x_in
+        batch_stats = torch.stack(per_block)
+        acc = batch_stats if acc is None else acc + batch_stats
+    host = acc.cpu().tolist()  # one readback per stack
+    return {stack.weight_key(i, ln): host[i][j]
+            for i in range(stack.num_blocks)
+            for j, ln in enumerate(stack.linear_names)}
+
+
+@torch.enable_grad()
+def _rest_grad_sums(loss_fn: LossFn, model: nn.Module, data: Any,
+                    num_microbatches: int, targets: Sequence[WeightTarget],
+                    score_compute: str) -> Dict[str, float]:
+    """Targets outside every plan: one backward of the whole mean loss per
+    microbatch, with grad on those targets' weights only."""
+    ws = [t.weight(model) for t in targets]
+    batch_size = leading_dim(data)
+    acc = None
+    with _requiring_grad(ws):
+        for b in range(num_microbatches):
+            mb = slice_microbatch(data, b, num_microbatches, batch_size)
+            grads = torch.autograd.grad(loss_fn(model, mb).mean(), ws)
+            stats = torch.stack([_scalar_stat(g, w, score_compute)
+                                 for g, w in zip(grads, ws)])
+            acc = stats if acc is None else acc + stats
+            del grads
+    return dict(zip((t.name for t in targets), acc.cpu().tolist()))
+
+
+def first_order_group_sums(
+    loss_fn: LossFn,
+    model: nn.Module,
+    data: Any,
+    num_microbatches: int,
+    targets: List[WeightTarget],
+    score_compute: str = "GradMagAbs",
+    plans: Optional[Sequence[Any]] = None,
+) -> Dict[str, float]:
+    """Per-target importance sums, averaged over the microbatches
+    (first_order.py:206-401) -- all the coarse-stage allocator needs.
+
+    Args:
+      loss_fn: (model, batch) -> (B,) per-sample losses, for targets no
+        plan matches.
+      data: the stacked coarse batch, leading dim = microbatches * bs.
+      targets: the weights to score.
+      score_compute: GradOnly, GradMagAbs or GradMagSquare.
+      plans: suffix plans; each stack with a plan that matches a target
+        takes the streamed per-block backward.
+    Returns {target name: sum}.
+    """
+    if score_compute not in SCORE_COMPUTES:
+        raise ValueError(f"unknown first-order score method {score_compute!r}; "
+                         f"expected one of {SCORE_COMPUTES}")
+    if num_microbatches < 1:
+        raise ValueError("no calibration microbatches")
+    names = {t.name for t in targets}
+    sums: Dict[str, float] = {}
+    rest = list(targets)
+    for plan in plans or ():
+        if not any(plan.match(t.name) for t in rest):
+            continue
+        streamed = streamed_plan_grad_sums(model, data, num_microbatches, plan,
+                                           score_compute)
+        sums.update({k: v for k, v in streamed.items() if k in names})
+        rest = [t for t in rest if not plan.match(t.name)]
+    if rest:
+        sums.update(_rest_grad_sums(loss_fn, model, data, num_microbatches, rest,
+                                    score_compute))
+    return {t.name: sums[t.name] / num_microbatches for t in targets}

@@ -10,6 +10,10 @@ tail from the stack's output to per-sample losses.
 The cache is built from the weights as they are when ``data`` is first read,
 so ``mezo_leaf_scores`` reads every plan's ``data`` before it perturbs
 anything (plans.py:148-151).
+
+First-order scoring reads only ``stack``, ``finish_fn``, ``base_data`` and
+``batch_size`` (``first_order.streamed_plan_grad_sums``): it prepares each
+microbatch's stack inputs itself and never builds the rolling cache.
 """
 
 from __future__ import annotations
@@ -75,6 +79,12 @@ class SuffixPlan:
                 self._x, self._cache = self.stack.prepare_inputs(self._model,
                                                                  self._batch)
             self._batch = None
+
+    @property
+    def base_data(self) -> Dict[str, Any]:
+        """The batch fields and extra data ``finish_fn`` reads, whole batch
+        (plans.py:128-132)."""
+        return self._base
 
     def match(self, name: str) -> bool:
         return name.startswith(self._prefix)

@@ -39,7 +39,9 @@ class TwoStagePruner:
     """Args mirror the reference kwargs (layer_single_base_pruner.py:19-63).
     ``seed`` keys the coarse stage's noise; ``noise`` is the tests' hook that
     replaces it (mezo.py). A given ``sparsity_dict`` skips the coarse stage.
-    The fine stage forwards one microbatch at a time (engine.py)."""
+    ``leaf_scores`` receives the coarse stage's per-target scores (MeZO
+    scores, or first-order importance sums for ``Grad*`` methods). The fine
+    stage forwards one microbatch at a time (engine.py)."""
 
     def __init__(
         self,
@@ -95,8 +97,11 @@ class TwoStagePruner:
             return dict(self.sparsity_dict)
         mapping = self.adapter.group_mapping(sparsity_ratio_granularity)
         data, num_mb = self._coarse_data()
+        # the suffix plans serve both methods: MeZO evaluates suffixes
+        # through their rolling caches, first-order streams each planned
+        # stack's backward block by block (and builds no cache)
         plans = None
-        if self.adapter.build_mezo_plans is not None and "MEZO" in self.score_method.upper():
+        if self.adapter.build_mezo_plans is not None:
             plans = self.adapter.build_mezo_plans(self.adapter.model, data)
         return compute_layer_sparsity(
             self.adapter.loss_fn, self.adapter.model, data, num_mb,

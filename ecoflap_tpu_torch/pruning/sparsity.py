@@ -1,9 +1,12 @@
 """Coarse stage: importance scores -> per-layer sparsity dict (port of
-``compute_layer_sparsity`` in ``ecoflap_tpu/pruning/sparsity.py``, MeZO
-methods; reference ``LayerSparsity``, layer_single_base_pruner.py:120-561).
+``compute_layer_sparsity`` in ``ecoflap_tpu/pruning/sparsity.py``, MeZO and
+first-order methods; reference ``LayerSparsity``,
+layer_single_base_pruner.py:120-561).
 
 * empty group mapping -> ``UniformSparsity(original_sparsity)``
 * ``MEZO-*`` methods -> zeroth-order scalar scores (mezo.py)
+* ``Grad*`` methods (GradOnly, GradMagAbs, GradMagSquare) -> first-order
+  importance sums (first_order.py); ``Real*`` methods are not ported
 * per-group aggregation: the sum of importance, or the sum over the group's
   parameter count for the ``_avg`` suffix
 * exact-budget water-filling with a per-group cap (allocator.py)
@@ -19,6 +22,7 @@ from ecoflap_tpu_torch.pruning.allocator import (
     UniformSparsity,
     compute_sparsity_per_group,
 )
+from ecoflap_tpu_torch.pruning.first_order import SCORE_COMPUTES, first_order_group_sums
 from ecoflap_tpu_torch.pruning.mezo import NoiseFn, mezo_group_sums, mezo_leaf_scores
 from ecoflap_tpu_torch.pruning.targets import WeightTarget
 
@@ -43,8 +47,11 @@ def compute_layer_sparsity(
     leaf_scores_out: Optional[Dict[str, float]] = None,
     verbose: bool = True,
 ) -> SparsityDict:
-    """Per-layer sparsity ratios under a global budget. ``leaf_scores_out``,
-    when given, receives the per-target MeZO scores."""
+    """Per-layer sparsity ratios under a global budget. ``loss_plans`` are
+    the suffix plans: MeZO evaluates suffixes through them, first-order
+    streams each planned stack's backward block by block.
+    ``leaf_scores_out``, when given, receives the per-target scores: the
+    MeZO scores, or the first-order importance sums."""
     if max_sparsity_per_layer < original_sparsity:
         raise ValueError("max_sparsity_per_layer must be >= the global target "
                          "sparsity (layer_single_base_pruner.py:154)")
@@ -52,19 +59,24 @@ def compute_layer_sparsity(
         return UniformSparsity(original_sparsity)
 
     score_compute, score_aggregate = score_method.split("_")
-    if not score_compute.startswith("MEZO"):
+    if not (score_compute.startswith("MEZO") or score_compute in SCORE_COMPUTES):
         raise NotImplementedError(
             f"score method {score_method!r} is not ported yet (ROADMAP.md: "
-            "first-order scoring)")
+            "Real* methods and the global pruners)")
     by_name = {t.name: t for t in targets}
     scored = [by_name[k] for k in layer_to_group_mapping if k in by_name]
 
-    leaf_scores = mezo_leaf_scores(
-        loss_fn, model, data, num_microbatches, scored, eps=noise_eps,
-        num_noise=num_noise, seed=seed, loss_plans=loss_plans, noise=noise)
+    if score_compute.startswith("MEZO"):
+        leaf_scores = mezo_leaf_scores(
+            loss_fn, model, data, num_microbatches, scored, eps=noise_eps,
+            num_noise=num_noise, seed=seed, loss_plans=loss_plans, noise=noise)
+        importance = mezo_group_sums(model, scored, leaf_scores, score_compute)
+    else:
+        leaf_scores = importance = first_order_group_sums(
+            loss_fn, model, data, num_microbatches, scored, score_compute,
+            plans=loss_plans)
     if leaf_scores_out is not None:
         leaf_scores_out.update(leaf_scores)
-    importance = mezo_group_sums(model, scored, leaf_scores, score_compute)
 
     group_scores: Dict[str, float] = {}
     group_num_parameters: Dict[str, int] = {}

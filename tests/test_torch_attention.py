@@ -1,6 +1,6 @@
 """The port's attention (``ecoflap_tpu_torch/ops/attention.py``) against the
 JAX package's ``mha`` in each mode, its mode resolution, and the flash
-kernel's wrapper on the CPU.
+kernels' wrappers on the CPU, forward and backward.
 
 The JAX flash path is TPU-only (tests/test_attention.py:102-104), so the JAX
 reference for the function the flash kernel computes is ``mha`` in
@@ -184,13 +184,119 @@ def test_flash_on_a_cpu_tensor_takes_the_plain_version_without_a_launch():
 
 
 def test_flash_rejects_grad_and_mismatched_inputs():
+    """Mismatched inputs raise; an input that requires grad is served (the
+    backward is ported), and on the CPU it takes the plain versions without
+    counting a launch."""
     q = torch.zeros(1, 2, 64, 128, requires_grad=True)
     k = torch.zeros(1, 2, 64, 128)
-    with pytest.raises(NotImplementedError, match="backward"):
-        TA.flash_attention(q, k, k, 1.0)
+    before = (TA.flash_attention.launches, TA.flash_attention_bwd.launches)
+    TA.flash_attention(q, k, k, 1.0).sum().backward()
+    assert q.grad is not None and q.grad.shape == q.shape
+    assert (TA.flash_attention.launches, TA.flash_attention_bwd.launches) == before
     with pytest.raises(ValueError, match="sq == sk"):
         TA.flash_attention(k, torch.zeros(1, 2, 128, 128), torch.zeros(1, 2, 128, 128), 1.0)
     with pytest.raises(TypeError):
         TA.flash_attention(k, k.double(), k, 1.0)
     with pytest.raises(ValueError):
         TA.flash_attention(k[0], k[0], k[0], 1.0)
+    with pytest.raises(ValueError, match="lse"):
+        TA.flash_attention_bwd(k, k, k, k, torch.zeros(1, 2, 32), k, 1.0)
+
+
+# -- the backward ---------------------------------------------------------------
+#
+# Tolerance, float32 at (1, 2, 512, 128): the two packages form the same
+# float32 products in other orders, and the JAX modes scale q before the
+# scores where the port scales the scores; each gradient sums 512 such
+# terms of size ~1, so a few float32 ulps of sums of size ~10: atol 1e-5.
+BWD_SHAPE = (1, 2, 512, 128)
+BWD_ATOL = 1e-5
+
+
+def _bwd_inputs(seed):
+    q, k, v = _qkv(seed, *BWD_SHAPE[:3], BWD_SHAPE[2], BWD_SHAPE[3])
+    do = np.random.default_rng(seed + 100).normal(size=BWD_SHAPE).astype(np.float32)
+    return q, k, v, do
+
+
+def _port_grads(path, q, k, v, do, scale):
+    tq, tk, tv, tdo = (torch.from_numpy(a.copy()) for a in (q, k, v, do))
+    if path == "plain":
+        o, lse = TA.flash_attention_lse_ref(tq, tk, tv, scale)
+        return TA.flash_attention_bwd_ref(tq, tk, tv, o, lse, tdo, scale)
+    leaves = [t.requires_grad_() for t in (tq, tk, tv)]
+    out = TA.mha(*leaves, sm_scale=scale, causal=True, mode="flash")
+    return torch.autograd.grad(out, leaves, grad_outputs=tdo)
+
+
+@pytest.mark.parametrize("jax_mode", ["chunked", "naive"])
+@pytest.mark.parametrize("path", ["plain", "autograd_function"])
+def test_flash_backward_matches_jax_vjp_of_mha(path, jax_mode):
+    """dq, dk, dv of the backward's plain version, and of the autograd
+    Function that ``mha(mode="flash")`` runs on CPU tensors, against
+    ``jax.vjp`` of the JAX package's ``mha`` on the same inputs and dO."""
+    import jax
+
+    q, k, v, do = _bwd_inputs(11)
+    scale = BWD_SHAPE[3] ** -0.5
+    _, vjp = jax.vjp(lambda a, b, c: JA.mha(a, b, c, sm_scale=scale, causal=True,
+                                            mode=jax_mode),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    got = _port_grads(path, q, k, v, do, scale)
+    for g, w in zip(got, want):
+        _close(g, w, atol=BWD_ATOL)
+
+
+def test_flash_backward_matches_the_pallas_libraries_reference_bwd():
+    """The plain backward against the Pallas library's own pure-jnp
+    ``mha_reference_bwd`` (jax/experimental/pallas/ops/tpu/flash_attention.py),
+    the backward that the TPU kernels are tested against, and the LSE
+    against the library's residuals, m + log l. That reference takes
+    sm_scale == 1 only, so q enters pre-scaled."""
+    from jax.experimental.pallas.ops.tpu import flash_attention as lib
+
+    q, k, v, do = _bwd_inputs(12)
+    q = (q * BWD_SHAPE[3] ** -0.5).astype(np.float32)
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    out, l, m = lib.mha_reference_no_custom_vjp(jq, jk, jv, causal=True,
+                                                save_residuals=True)
+    want = lib.mha_reference_bwd(jq, jk, jv, None, None, out, l, m, jdo, causal=True)[:3]
+    tq, tk, tv, tdo = (torch.from_numpy(a.copy()) for a in (q, k, v, do))
+    o, lse = TA.flash_attention_lse_ref(tq, tk, tv, 1.0)
+    _close(o, out)
+    _close(lse, m + jnp.log(l))
+    for g, w in zip(TA.flash_attention_bwd_ref(tq, tk, tv, o, lse, tdo, 1.0), want):
+        _close(g, w, atol=BWD_ATOL)
+
+
+def test_flash_backward_agrees_with_autograd_through_the_plain_forward():
+    """The explicit formulas of the plain backward, and the autograd
+    Function, against autograd through ``flash_attention_ref`` (softmax's
+    own backward) on the same float32 inputs: the same function, other
+    float32 roundings (rowsum(O ∘ dO) against rowsum(P ∘ dP))."""
+    q, k, v, do = (torch.from_numpy(a) for a in _bwd_inputs(13))
+    scale = 0.1
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(TA.flash_attention_ref(*leaves, scale), leaves,
+                               grad_outputs=do)
+    o, lse = TA.flash_attention_lse_ref(q, k, v, scale)
+    for g, w in zip(TA.flash_attention_bwd_ref(q, k, v, o, lse, do, scale), want):
+        _close(g, w, atol=BWD_ATOL)
+    fn = torch.autograd.grad(TA.flash_attention(*leaves, scale), leaves, grad_outputs=do)
+    for g, w in zip(fn, want):
+        _close(g, w, atol=BWD_ATOL)
+
+
+def test_flash_backward_is_causal():
+    """dO zero on query rows >= r: key rows >= r get no gradient, exactly
+    (those keys are seen only by those queries)."""
+    q, k, v, do = (torch.from_numpy(a) for a in _bwd_inputs(14))
+    r = 300
+    do[:, :, r:] = 0
+    o, lse = TA.flash_attention_lse_ref(q, k, v, 0.1)
+    dq, dk, dv = TA.flash_attention_bwd_ref(q, k, v, o, lse, do, 0.1)
+    assert torch.count_nonzero(dk[:, :, r:]) == 0
+    assert torch.count_nonzero(dv[:, :, r:]) == 0
+    assert torch.count_nonzero(dq[:, :, r:]) == 0
+    assert torch.count_nonzero(dk[:, :, :r]) > 0

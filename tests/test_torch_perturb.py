@@ -38,7 +38,18 @@ def test_mulhilo_limbs_match_exact_product():
 
 
 def test_words_to_normal_matches_the_tpu_kernel_transform():
-    """numpy transcription of ecoflap_tpu/ops/perturb.py:61-68."""
+    """numpy transcription of ecoflap_tpu/ops/perturb.py:61-68, float32
+    throughout except log and cos, which are evaluated in float64 and
+    rounded once to float32 (correctly rounded, in practice).
+
+    numpy's own float32 log and cos are SIMD code whose argument reduction
+    assumes round-to-nearest: on a thread whose floating-point rounding mode
+    is directed, they drift by up to 4.4e-5 on some 7% of these inputs,
+    where torch's stay within 3.3e-6 and the float64 ones within 3.5e-6 of
+    their round-to-nearest results. A reference built on numpy's float32
+    functions therefore failed whenever the test process ran with another
+    rounding mode. This one agrees with the port within 1e-6 when both run
+    in the same mode, and within 3.5e-6 when only one of them does."""
     rng = np.random.default_rng(1)
     b1 = rng.integers(0, 2 ** 32, size=50_000, dtype=np.uint64).astype(np.uint32)
     b2 = rng.integers(0, 2 ** 32, size=50_000, dtype=np.uint64).astype(np.uint32)
@@ -46,11 +57,12 @@ def test_words_to_normal_matches_the_tpu_kernel_transform():
     u1 = (b1 >> 8).astype(np.int32).astype(np.float32) * np.float32(1.0 / (1 << 24))
     u2 = (b2 >> 8).astype(np.int32).astype(np.float32) * np.float32(1.0 / (1 << 24))
     u1 = np.maximum(u1, np.float32(1e-7))
-    want = (np.sqrt(np.float32(-2.0) * np.log(u1))
-            * np.cos(np.float32(2.0 * np.pi) * u2)).astype(np.float32)
+    log_u1 = np.log(u1.astype(np.float64)).astype(np.float32)
+    cos_arg = np.cos((np.float32(2.0 * np.pi) * u2).astype(np.float64)).astype(np.float32)
+    want = (np.sqrt(np.float32(-2.0) * log_u1) * cos_arg).astype(np.float32)
     got = P.words_to_normal(torch.from_numpy(b1.astype(np.int64)),
                             torch.from_numpy(b2.astype(np.int64))).numpy()
-    # float32 log/cos of two libraries: a few ulp of |z| <= 5.7
+    # float32 log/cos against correctly rounded ones: a few ulp of |z| <= 5.7
     np.testing.assert_allclose(got, want, rtol=0, atol=4e-6)
 
 

@@ -1,7 +1,7 @@
 """Shared set-up for the PyTorch-port parity tests (tests/test_torch_*.py):
 tiny BLIP-2 and tiny LLaMA in both packages with the same weights, batches
-made with numpy from a seed, and the JAX noise draws the port's MeZO hook
-replays."""
+made with numpy from a seed, the JAX noise draws the port's MeZO hook
+replays, and both packages' first-order sums on one model."""
 
 import jax
 import jax.numpy as jnp
@@ -78,3 +78,47 @@ def jax_noise(key):
         return torch.from_numpy(np.asarray(z).T.copy())
 
     return noise
+
+
+FIRST_ORDER_METHODS = ("GradOnly", "GradMagAbs", "GradMagSquare")
+
+
+def first_order_setup(model_name, num_mb=2):
+    """(JAX adapter, JAX params, port adapter, numpy batch) of one tiny
+    model, ``"blip2"`` or ``"llama"``, for the first-order tests."""
+    if model_name == "blip2":
+        cfg, params, model = tiny_pair(seed=0)
+        batch = np_batch(cfg, n=4 * num_mb, seed=3)
+        return jblip2.make_adapter(cfg, params), params, tblip2.make_adapter(model), batch
+    cfg, params, model = llama_pair(seed=2)
+    batch = lm_batch(cfg, n=4 * num_mb, seqlen=16, seed=7)
+    return jllama.make_adapter(cfg, params), params, tllama.make_adapter(model), batch
+
+
+def first_order_sums(model_name, num_mb=2):
+    """Both packages' first-order sums of one tiny model for every method:
+    JAX partitioned and streamed, the port with the adapter's plans
+    (streamed) and without them (one backward of the whole loss). Returns
+    (port adapter, {(package, path, method): sums})."""
+    from ecoflap_tpu.pruning.first_order import first_order_group_sums as jsums
+    from ecoflap_tpu_torch.pruning.first_order import first_order_group_sums as tsums
+
+    jad, params, tad, batch = first_order_setup(model_name, num_mb)
+    jb, tb = to_jax(batch), to_torch(batch)
+    batches = [jax.tree_util.tree_map(
+        lambda x: x.reshape(num_mb, -1, *x.shape[1:])[b], jb) for b in range(num_mb)]
+    prefixes = [s.blocks_path for s in jad.stacks]
+    out = {}
+    for method in FIRST_ORDER_METHODS:
+        out["jax", "partitioned", method] = jsums(
+            jad.loss_fn, params, batches, jad.targets(), method,
+            partition_prefixes=prefixes)
+        out["jax", "streamed", method] = jsums(
+            jad.loss_fn, params, batches, jad.targets(), method,
+            partition_prefixes=prefixes, stream_plans=jad.build_mezo_plans(params, jb))
+        out["port", "streamed", method] = tsums(
+            tad.loss_fn, tad.model, tb, num_mb, tad.targets(), method,
+            plans=tad.build_mezo_plans(tad.model, tb))
+        out["port", "plain", method] = tsums(
+            tad.loss_fn, tad.model, tb, num_mb, tad.targets(), method)
+    return tad, out
