@@ -11,9 +11,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
      perturbation kernels (in place and out of place) at the BLIP-2
      FlanT5-XL weight shapes plus a ragged one, in bf16 and f32; the causal
      flash-attention forward (with and without its LSE output) and backward
-     kernels at the LLaMA calibration shape and a short one, their
-     causality, strided inputs, the backward's determinism, and refusals of
-     what they do not take;
+     kernels at the LLaMA calibration shape, a short one and one whose last
+     128-row tile is half full (S % 128 == 64), their causality, strided
+     inputs, the backward's determinism, and refusals of what they do not
+     take;
   3. kernel timing (CUDA events) beside each kernel's bound, its plain
      version and, where one exists, the PyTorch library call;
   4. the BLIP-2 path: ``ecoflap_tpu_torch.cli.prune.main`` prunes BLIP-2
@@ -79,8 +80,10 @@ LLAMA_FO_FIRST_STAGE = 32  # the first-order path scores all 32, as the referenc
 BLIP2_FO_FIRST_STAGE = 32  # the reference's ecoflap_first.py scores 128
 Z_ULP_TOL = 4  # CUDA logf/cosf vs PyTorch's: a few ulp at most
 BF16_MISMATCH_SHARE = 1e-4  # bf16 outputs a z ulp away from a rounding tie
-# (B, H, S, Dh): the coarse and fine chunk shape of LLaMA-7B, and a short one
-FLASH_SHAPES = [(8, 32, 2048, 128), (1, 32, 512, 128)]
+# (B, H, S, Dh): the coarse and fine chunk shape of LLaMA-7B, a short one, and
+# one whose last 128-row tile is half full (S % 128 == 64: the tensor maps'
+# bounds zero-fill it and its rows past S are never stored)
+FLASH_SHAPES = [(8, 32, 2048, 128), (1, 32, 512, 128), (2, 8, 576, 128)]
 # kernel (bf16 out) vs plain version (float32 throughout, one rounding to
 # bf16). The output rounding alone is half a bf16 ulp, 2^-9 relative, on
 # either side, so two roundings can sit one ulp (2^-8 = 3.9e-3 relative)
@@ -462,6 +465,27 @@ def bound(t):
     return max(t["bytes_bound_ms"], t["ops_bound_ms"]), by
 
 
+def ptxas_usage(log):
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} from one
+    library's ``nvcc -Xptxas -v`` output (the register count is the launch's;
+    a warp-specialised kernel's warpgroups then move registers between them
+    with setmaxnreg)."""
+    usage, kernel = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:  # a mangled name follows
+            found = re.search(r"\d([a-z][a-z_]*_kernel)", line)
+            kernel = found.group(1) if found else None
+            if kernel:
+                usage[kernel] = {}
+        elif kernel and "spill stores" in line:
+            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            usage[kernel]["spill_stores"] = int(found.group(1))
+            usage[kernel]["spill_loads"] = int(found.group(2))
+        elif kernel and "Used" in line and "registers" in line:
+            usage[kernel]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return usage
+
+
 def xl_target_shapes():
     """(out, in) of every main-path target, in the adapter's order."""
     vit = [(4224, 1408), (1408, 1408), (6144, 1408), (1408, 6144)] * 39
@@ -647,14 +671,16 @@ def main(argv=None) -> int:
     t0 = time.time()
     built = build.build()
     log(f"kernel build: {time.time() - t0:.2f} s for {sorted(built)}")
+    usage = {}
     for name, (lib, ptxas) in built.items():
-        kernel = name
+        usage[name] = ptxas_usage(ptxas)
+        for kernel, u in usage[name].items():
+            log(f"  {name} {kernel}: {u.get('registers')} registers, "
+                f"{u.get('spill_stores')} bytes spill stores, "
+                f"{u.get('spill_loads')} bytes spill loads")
         for line in ptxas.splitlines():
-            if "Compiling entry function" in line:  # a mangled name follows
-                found = re.search(r"\d([a-z][a-z_]*_kernel)", line)
-                kernel = found.group(1) if found else name
-            if "registers" in line or "spill" in line:
-                log(f"  {name} {kernel}: {line.strip()}")
+            if "Performance Loss" in line:  # e.g. wgmma serialised by ptxas
+                log(f"  {name}: {line.strip()}")
 
     # -- 2. kernel vs plain ---------------------------------------------------
     worst_err, worst_ulp = 0.0, 0.0
@@ -714,7 +740,8 @@ def main(argv=None) -> int:
     fb, fby = bound(flash_t)
     log(f"flash_attention {tuple(flash_t['shape'])}: kernel {flash_t['ms']:.4f} ms | "
         f"bound {fb:.4f} ms ({fby}; ops {flash_t['ops_bound_ms']:.4f}, bytes "
-        f"{flash_t['bytes_bound_ms']:.4f}) | plain {flash_t['plain_ms']:.3f} ms | "
+        f"{flash_t['bytes_bound_ms']:.4f}) | share of bound {fb / flash_t['ms']:.3f} | "
+        f"plain {flash_t['plain_ms']:.3f} ms | "
         f"library scaled_dot_product_attention {flash_t['library_ms']:.4f} ms")
     gc.collect()
     torch.cuda.empty_cache()
@@ -722,7 +749,8 @@ def main(argv=None) -> int:
     bb, bby = bound(bwd_t)
     log(f"flash_attention_bwd {tuple(bwd_t['shape'])}: kernels {bwd_t['ms']:.4f} ms | "
         f"bound {bb:.4f} ms ({bby}; ops {bwd_t['ops_bound_ms']:.4f}, bytes "
-        f"{bwd_t['bytes_bound_ms']:.4f}) | plain {bwd_t['plain_ms']:.3f} ms | library "
+        f"{bwd_t['bytes_bound_ms']:.4f}) | share of bound {bb / bwd_t['ms']:.3f} | "
+        f"plain {bwd_t['plain_ms']:.3f} ms | library "
         f"scaled_dot_product_attention backward {bwd_t['library_ms']:.4f} ms "
         f"(forward + backward {bwd_t['library_fwd_bwd_ms']:.4f} ms)")
     gc.collect()
@@ -882,7 +910,8 @@ def main(argv=None) -> int:
          "launches_by_path": by_path["flash_attention"],
          "max_abs_err": flash_err[FLASH_SHAPES[0]][0],
          "ms": flash_t["ms"], "plain_ms": flash_t["plain_ms"],
-         "bound_ms": fb, "bound_by": fby, "library_ms": flash_t["library_ms"]},
+         "bound_ms": fb, "bound_by": fby, "library_ms": flash_t["library_ms"],
+         "bound_share": fb / flash_t["ms"], "ptxas": usage.get("flash_attn") or None},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "ecoflap_tpu_torch/csrc/flash_attn_bwd.cu",
          "replaces": "ecoflap_tpu/ops/attention.py:189",
@@ -891,7 +920,8 @@ def main(argv=None) -> int:
          "launches_by_path": by_path["flash_attention_bwd"],
          "max_abs_err": bwd_err[FLASH_SHAPES[0]][0],
          "ms": bwd_t["ms"], "plain_ms": bwd_t["plain_ms"],
-         "bound_ms": bb, "bound_by": bby, "library_ms": bwd_t["library_ms"]},
+         "bound_ms": bb, "bound_by": bby, "library_ms": bwd_t["library_ms"],
+         "bound_share": bb / bwd_t["ms"], "ptxas": usage.get("flash_attn_bwd") or None},
     ]}))
     log(f"chip_smoke: {time.time() - t_start:.1f} s in all")
     log(smi)

@@ -14,38 +14,14 @@
 // ecoflap_tpu/ops/attention.py:189 (_flash -> the Pallas library's
 // flash_attention, a custom_vjp): _flash_attention_bwd_dkv and
 // _flash_attention_bwd_dq. As there, the backward is split in two kernels,
-// one that owns a key tile and one that owns a query tile, so every output
+// one that owns key rows and one that owns query rows, so every output
 // element is written by exactly one CTA: no atomics, and dQ, dK, dV are the
 // same bits from run to run. The masked scores take the forward's finite
 // mask value -0.7 * FLT_MAX, so P is exactly 0 above the diagonal. Di, which
 // the library computes in XLA before its kernels, is fused into the dQ
-// kernel: each dQ CTA reduces its 64 rows of O * dO in float32 (a fixed
-// shuffle tree) and writes them for the dK/dV kernel, which is launched
-// after it on the same stream.
-//
-// Design (FlashAttention-2 backward, mma.sync bf16 -> f32, cp.async):
-//   * dK/dV: one CTA per (64-key tile, b * H + h), 8 warps. K and V are
-//     staged once; Q and dO tiles of 64 queries are double-buffered with
-//     cp.async over the query tiles from the diagonal to the end (causal:
-//     queries >= keys). Key tile 0, which sees every query, launches first.
-//   * dQ: one CTA per (64-query tile, b * H + h), 8 warps. Q and dO are
-//     staged once; K and V tiles are double-buffered over the key tiles up to
-//     the diagonal. The longest query tiles launch first.
-//   * Each tile step has two phases. Phase A: warp w takes 16 rows and 32
-//     columns of the 64 x 64 score tile and computes both products over the
-//     head dimension (S and dP, or their transposes), then P and dS in
-//     float32 registers, and stores them as bf16 to shared memory. Phase B:
-//     warp w takes 16 rows and 64 head-dimension columns of the outputs and
-//     accumulates dV += P^T dO and dK += dS^T Q (or dQ += dS K) from shared
-//     memory. So each warp holds two 16 x 64 float32 accumulators (dK/dV) or
-//     one (dQ), where one warp per 16 rows would need two of 16 x 128: the
-//     split keeps the register count under the limit without spills.
-//   * Rows of the 64 x 128 tiles are padded from 256 to 272 bytes and rows of
-//     the 64 x 64 P and dS tiles from 128 to 144 bytes, so the ldmatrix reads
-//     of eight rows hit eight different bank groups.
-//   * P and dS are rounded to bf16 before their products (as FlashAttention-2
-//     does); dS is formed from the float32 P.
-// Inputs and outputs take any strides whose last dimension is contiguous.
+// kernel: each thread sums a quarter of a row of O * dO in float32 and a
+// fixed shuffle tree adds the quarters; the sums are written for the dK/dV
+// kernel, which is launched after it on the same stream.
 //
 // What bounds it on an H100: at B = 8, H = 32, S = 2048 the function needs
 // five products over the causal half (S, dP, dV, dK, dQ), 2.5 times the
@@ -53,395 +29,521 @@
 // against 1.08 GB of bytes (q, k, v, o, dO and LSE read, dQ, dK, dV
 // written), 0.32 ms at 3.35 TB/s: the operations bound. The two-kernel split
 // computes S and dP twice (seven products, 1.4 times the bound's work) to buy
-// deterministic outputs without atomics; wgmma, TMA and warp specialisation
-// are later work.
+// deterministic outputs without atomics. Only wgmma reaches the tensor
+// cores' full rate, and it has to be fed without the issuing threads
+// stopping to copy or to pass P and dS through shared memory.
+//
+// Design (Hopper, warp-specialised; helpers in csrc/hopper.cuh). Both
+// kernels have the same shape:
+//   * one CTA owns 128 rows of one side (keys for dK/dV, queries for dQ) of
+//     one (b, h): a producer warpgroup and two consumer warpgroups of 64
+//     rows each. The owned Q and dO (or K and V) are loaded once by TMA; the
+//     other side streams through a ring of 64-row tiles (three stages for dQ,
+//     two for dK/dV), loaded by the producer's one thread with TMA on
+//     mbarriers, each tile two 64-column boxes of 128-byte-swizzled rows
+//     from a 4-D tensor map (dims 128, S, H, B built from the caller's
+//     strides; boxes that run past S read zeros). The consumers free a stage
+//     with one arrival per warp. The producer gives up registers (setmaxnreg
+//     24), the consumers take them (240): dK and dV are two 64 x 128 float32
+//     accumulators, 128 registers a thread;
+//   * the two consumer warpgroups take turns to issue their score products
+//     (a pair of named barriers), so one's elementwise work overlaps the
+//     other's products;
+//   * dK/dV, per 64-query tile: S^T = K Q^T and dP^T = V dO^T are SS wgmmas
+//     m64n64k16 (both operands K-major); P^T and dS^T are formed in the
+//     float32 accumulators, with the tile's LSE and Di rows staged in shared
+//     memory by the producer beside its Q and dO (bulk copies on the same
+//     mbarrier), then rounded to bf16 in registers, where the accumulator
+//     layout is the A-fragment layout; dV += P^T dO (issued before dS^T is
+//     formed) and dK += dS^T Q are RS wgmmas m64n128k16 with dO and Q read
+//     MN-major. No shared-memory round trip of P or dS, no block-wide barrier
+//     in the loop. Query tiles run from the diagonal to the end (causal:
+//     queries >= keys). Overlapping a tile's score products with the last
+//     tile's dV and dK products needs more than the 240 registers;
+//   * dQ, per 64-key tile: S = Q K^T and dP = dO V^T as SS wgmmas, dS in
+//     registers, dQ += dS K as an RS wgmma with K read MN-major; key tiles
+//     run up to the diagonal. Step j issues S_j and dP_j and then the dQ
+//     product of tile j - 1, and forms dS_j while that product runs. Di and
+//     LSE of the CTA's rows are read once, before the loop;
+//   * the outputs leave through shared memory: each consumer warpgroup
+//     writes its 64 rows, as bf16, over its own rows of the owned tiles (dQ
+//     over Q, dK over K, dV over V) and one thread stores them with TMA;
+//   * a consumer warpgroup skips the tiles wholly above its diagonal (it
+//     still waits for them, takes its turn and frees them), masks its
+//     diagonal tile, and stores nothing when its rows all lie past S (the
+//     output maps would clip them anyway); the longest tiles of a head
+//     are launched first, and the heads one after the other, so the CTAs on
+//     the card at one time share their heads' streamed tiles in L2.
+// P and dS are rounded to bf16 before their products (as FlashAttention-2
+// does); dS is formed from the float32 P.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
+using namespace hopper;
+
 constexpr int kDh = 128;
-constexpr int kBlock = 64;  // queries or keys per tile
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRow = kDh + 8;  // padded row of a Q, K, V or dO tile: 272 bytes
-constexpr int kTile = kBlock * kRow;
-constexpr int kPRow = kBlock + 8;  // padded row of a P or dS tile: 144 bytes
-constexpr int kPTile = kBlock * kPRow;
-constexpr int kBf16 = static_cast<int>(sizeof(__nv_bfloat16));
-// dK/dV: K, V, two stages of Q and of dO, then P^T and dS^T
-constexpr int kSmemDkv = (6 * kTile + 2 * kPTile) * kBf16;
-// dQ: Q, dO, two stages of K and of V, dS, then Di of the tile's rows
-constexpr int kSmemDq = (6 * kTile + kPTile) * kBf16 + kBlock * static_cast<int>(sizeof(float));
+constexpr int kOwn = 128;    // rows a CTA owns: two consumer warpgroups of 64
+constexpr int kStream = 64;  // rows of a streamed tile
+// ring depth: the dQ kernel holds a tile until its dQ product, issued in the
+// next step, is done; the dK/dV kernel frees a tile within its step
+constexpr int kStagesDq = 3;
+constexpr int kStagesDkv = 2;
+constexpr int kConsumers = 2;
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kOwnBox = kOwn * 128;          // one 64-column box of owned rows
+constexpr int kOwnTile = 2 * kOwnBox;        // 128 rows x 128 columns
+constexpr int kStreamBox = kStream * 128;    // one 64-column box of a streamed tile
+constexpr int kStreamTile = 2 * kStreamBox;  // 64 rows x 128 columns
+constexpr int kRowBytes = kStream * static_cast<int>(sizeof(float));  // LSE or Di of a tile
 constexpr float kMaskValue = -0.7f * FLT_MAX;
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a * b for one 16x8 tile, k = 16: a row-major 16x16, b column-major
-// 16x8, bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats -> one register of two bf16, the lower column in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// two owned tiles, Stages of two streamed tiles, LSE and Di per stage, the
+// barriers; 1024 to align the base
+template <int Stages>
+constexpr int smem_bytes() {
+  return 2 * kOwnTile + 2 * Stages * kStreamTile + 2 * Stages * kRowBytes + 1024 + 128;
 }
 
 struct Strides {
   int64_t b, h, s;  // in elements; the head dimension is contiguous
 };
 
-// Rows row0..row0+63 of one (b, h) slice into a padded shared tile, 16
-// bytes a copy: 64 rows x 16 chunks over 256 threads.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* sm, const __nv_bfloat16* g,
-                                          int64_t row_stride, int tid) {
-#pragma unroll
-  for (int c = tid; c < kBlock * (kDh / 8); c += kThreads) {
-    const int r = c >> 4;
-    const int col = (c & 15) * 8;
-    cp_async16(sm + r * kRow + col, g + r * row_stride + col);
-  }
-}
+template <int Stages>
+struct Smem {
+  char* own0;  // Q (dQ) or K (dK/dV), owned rows
+  char* own1;  // dO (dQ) or V (dK/dV), owned rows
+  char* str0;  // stage 0 of K (dQ) or Q (dK/dV); stage s at + s * kStreamTile
+  char* str1;  // stages of V (dQ) or dO (dK/dV)
+  float* lse;  // stages of the streamed tile's LSE rows (dK/dV)
+  float* di;   // stages of its Di rows (dK/dV)
+  uint64_t* own_full;
+  uint64_t* full;
+  uint64_t* empty;
 
-// Phase A of one warp: c1 = A1 B1^T and c2 = A2 B2^T, where A1, A2 point at
-// 16 rows and B1, B2 at 32 rows of padded 64 x 128 tiles; the product runs
-// over the head dimension. c[nt] covers columns nt*8 .. nt*8+7 of the 32.
-__device__ __forceinline__ void score_products(float (&c1)[4][4], float (&c2)[4][4],
-                                               const __nv_bfloat16* a1,
-                                               const __nv_bfloat16* b1,
-                                               const __nv_bfloat16* a2,
-                                               const __nv_bfloat16* b2, int lane) {
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c1[nt][e] = c2[nt][e] = 0.f;
+  __device__ __forceinline__ explicit Smem(unsigned char* raw) {
+    own0 = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
+                                   ~static_cast<uintptr_t>(1023));
+    own1 = own0 + kOwnTile;
+    str0 = own1 + kOwnTile;
+    str1 = str0 + Stages * kStreamTile;
+    lse = reinterpret_cast<float*>(str1 + Stages * kStreamTile);
+    di = lse + Stages * kStream;
+    own_full = reinterpret_cast<uint64_t*>(di + Stages * kStream);
+    full = own_full + 1;
+    empty = full + Stages;
+    if (threadIdx.x == 0) {
+      mbar_init(own_full, 1);
+      for (int s = 0; s < Stages; ++s) {
+        mbar_init(&full[s], 1);
+        mbar_init(&empty[s], 4 * kConsumers);
+      }
+      mbar_init_fence();
+    }
+    __syncthreads();
   }
-#pragma unroll
-  for (int kk2 = 0; kk2 < kDh / 32; ++kk2) {
-    uint32_t fa1[2][4], fa2[2][4];
-#pragma unroll
+
+  // The producer's loads of the owned rows: two tensors, two boxes each.
+  __device__ __forceinline__ void load_owned(const CUtensorMap* a, const CUtensorMap* b,
+                                             int row, int h, int bb) const {
+    mbar_arrive_expect_tx(own_full, 2 * kOwnTile);
     for (int half = 0; half < 2; ++half) {
-      const int off = (lane & 15) * kRow + kk2 * 32 + half * 16 + (lane >> 4) * 8;
-      ldmatrix_x4(fa1[half], a1 + off);
-      ldmatrix_x4(fa2[half], a2 + off);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int off = (nt * 8 + (lane & 7)) * kRow + kk2 * 32 + (lane >> 3) * 8;
-      uint32_t fb[4];
-      ldmatrix_x4(fb, b1 + off);
-      mma_bf16(c1[nt], fa1[0], fb[0], fb[1]);
-      mma_bf16(c1[nt], fa1[1], fb[2], fb[3]);
-      ldmatrix_x4(fb, b2 + off);
-      mma_bf16(c2[nt], fa2[0], fb[0], fb[1]);
-      mma_bf16(c2[nt], fa2[1], fb[2], fb[3]);
+      tma_load_4d(own0 + half * kOwnBox, a, own_full, 64 * half, row, h, bb);
+      tma_load_4d(own1 + half * kOwnBox, b, own_full, 64 * half, row, h, bb);
     }
   }
-}
 
-// Stores a warp's 16 x 32 float32 tile c (layout of score_products) as bf16
-// into a padded 64 x 64 tile at rows row0.., columns col0...
-__device__ __forceinline__ void store_p_tile(__nv_bfloat16* sm, float (&c)[4][4],
-                                             int row0, int col0, int lane) {
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    __nv_bfloat16* p = sm + (row0 + g) * kPRow + col0 + nt * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(p) = pack_bf16(c[nt][0], c[nt][1]);
-    *reinterpret_cast<uint32_t*>(p + 8 * kPRow) = pack_bf16(c[nt][2], c[nt][3]);
+  // Waits for the stage of streamed tile j to be free and loads two
+  // tensors' rows into it; `extra` more bytes are expected on the same
+  // barrier. Returns the stage.
+  __device__ __forceinline__ int acquire(int j, const CUtensorMap* a, const CUtensorMap* b,
+                                         int row, int h, int bb, uint32_t extra) const {
+    const int s = j % Stages;
+    mbar_wait(&empty[s], ((j / Stages) & 1) ^ 1);
+    mbar_arrive_expect_tx(&full[s], 2 * kStreamTile + extra);
+    for (int half = 0; half < 2; ++half) {
+      tma_load_4d(str0 + s * kStreamTile + half * kStreamBox, a, &full[s], 64 * half, row, h,
+                  bb);
+      tma_load_4d(str1 + s * kStreamTile + half * kStreamBox, b, &full[s], 64 * half, row, h,
+                  bb);
+    }
+    return s;
   }
+
+  // A consumer's wait for the tile of step j, and its warp's release of it.
+  __device__ __forceinline__ void wait_full(int j) const {
+    mbar_wait(&full[j % Stages], (j / Stages) & 1);
+  }
+  __device__ __forceinline__ void release(int j, int lane) const {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[j % Stages]);
+  }
+  __device__ __forceinline__ const char* tile0(int j) const {
+    return str0 + (j % Stages) * kStreamTile;
+  }
+  __device__ __forceinline__ const char* tile1(int j) const {
+    return str1 + (j % Stages) * kStreamTile;
+  }
+};
+
+// Both score-type products of a tile over the head dimension, c1 = A1 B1^T
+// and c2 = A2 B2^T, 64 owned rows x 64 streamed rows, as SS wgmmas issued and
+// committed as one group.
+__device__ __forceinline__ void issue_scores(float (&c1)[32], float (&c2)[32], const char* a1,
+                                             const char* b1, const char* a2, const char* b2) {
+#pragma unroll
+  for (int kk = 0; kk < kDh / 16; ++kk) {
+    const int a_off = (kk / 4) * kOwnBox + (kk % 4) * 32;
+    const int b_off = (kk / 4) * kStreamBox + (kk % 4) * 32;
+    wgmma_m64n64k16_ss<0>(c1, desc_k_major(a1 + a_off), desc_k_major(b1 + b_off), kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < kDh / 16; ++kk) {
+    const int a_off = (kk / 4) * kOwnBox + (kk % 4) * 32;
+    const int b_off = (kk / 4) * kStreamBox + (kk % 4) * 32;
+    wgmma_m64n64k16_ss<0>(c2, desc_k_major(a2 + a_off), desc_k_major(b2 + b_off), kk > 0);
+  }
+  wgmma_commit();
 }
 
-// Phase B of one warp: acc += A B, A the 16 rows at `a` of a padded 64 x 64
-// P-type tile, B the padded 64 x 128 tile `t` (its rows are the contraction
-// index) restricted to columns col0 .. col0+63; acc[n] covers columns
-// col0 + n*8 .. col0 + n*8 + 7.
-__device__ __forceinline__ void accumulate_product(float (&acc)[8][4], const __nv_bfloat16* a,
-                                                   const __nv_bfloat16* t, int col0, int lane) {
+// acc += A T over the 64 streamed rows: A the bf16 fragments (4 k-steps of
+// 16 rows), T a streamed tile read MN-major (its rows are the contraction
+// index, its 128 columns the output's). Issued and committed as one group.
+__device__ __forceinline__ void issue_accumulate(float (&acc)[64], const uint32_t (&a)[4][4],
+                                                 const char* tile) {
 #pragma unroll
-  for (int kq = 0; kq < kBlock / 16; ++kq) {
-    uint32_t fa[4];
-    ldmatrix_x4(fa, a + (lane & 15) * kPRow + kq * 16 + (lane >> 4) * 8);
+  for (int kk = 0; kk < kStream / 16; ++kk) {
+    wgmma_m64n128k16_rs<1>(acc, a[kk], desc_mn_major(tile + kk * 2048, kStreamBox), 1);
+  }
+  wgmma_commit();
+}
+
+// Writes a warpgroup's 64 x 128 accumulator times `scale` as bf16 into its
+// own 64 rows of an owned tile (two boxes of swizzled rows), whose last
+// product is done: the other warpgroup reads only its own rows.
+__device__ __forceinline__ void stage_out(char* own_wg, const float (&acc)[64], float scale,
+                                          int warp, int g, int t) {
 #pragma unroll
-    for (int dp = 0; dp < 4; ++dp) {
-      uint32_t fb[4];
-      ldmatrix_x4_trans(fb, t + (kq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kRow +
-                                col0 + dp * 16 + (lane >> 4) * 8);
-      mma_bf16(acc[2 * dp], fa, fb[0], fb[1]);
-      mma_bf16(acc[2 * dp + 1], fa, fb[2], fb[3]);
+  for (int r = 0; r < 2; ++r) {
+    const int local = 16 * warp + g + 8 * r;
+#pragma unroll
+    for (int c = 0; c < kDh / 8; ++c) {
+      char* at = swizzled(own_wg + (c / 8) * kOwnBox, local, 8 * (c % 8) + 2 * t);
+      *reinterpret_cast<uint32_t*>(at) =
+          pack_bf16(acc[4 * c + 2 * r] * scale, acc[4 * c + 2 * r + 1] * scale);
     }
   }
 }
 
-// Writes a warp's 16 x 64 accumulator times `scale` as bf16 rows row0.. of
-// a strided (b, h) slice, columns col0...
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out, int64_t row_stride,
-                                           float (&acc)[8][4], float scale, int row0,
-                                           int col0, int lane) {
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  __nv_bfloat16* p = out + (row0 + g) * row_stride + col0 + 2 * t;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    *reinterpret_cast<uint32_t*>(p + n * 8) =
-        pack_bf16(acc[n][0] * scale, acc[n][1] * scale);
-    *reinterpret_cast<uint32_t*>(p + 8 * row_stride + n * 8) =
-        pack_bf16(acc[n][2] * scale, acc[n][3] * scale);
-  }
+// One thread's TMA stores of a warpgroup's staged rows to rows row0 .. of a
+// (b, h) slice; rows past S are clipped by the map.
+__device__ __forceinline__ void store_out(const CUtensorMap* map, const char* own_wg, int row0,
+                                          int h, int b) {
+  tma_store_4d(map, own_wg, 0, row0, h, b);
+  tma_store_4d(map, own_wg + kOwnBox, 64, row0, h, b);
 }
 
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
-                    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                    float* __restrict__ di, __nv_bfloat16* __restrict__ dq, Strides qs,
-                    Strides ks, Strides vs, Strides os, Strides dos, Strides dqs,
-                    int num_heads, float scale_log2, float sm_scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sdO = sQ + kTile;
-  __nv_bfloat16* sK = sdO + kTile;
-  __nv_bfloat16* sV = sK + 2 * kTile;
-  __nv_bfloat16* sdS = sV + 2 * kTile;
-  float* sDi = reinterpret_cast<float*>(sdS + kPTile);
+// The two consumer warpgroups take turns to issue their score products
+// (named barrier 1 + cw is warpgroup cw's turn), so one's elementwise work
+// overlaps the other's products. Both take a turn in every step, whether
+// they have work in it or not; warpgroup 0 goes first and, after the last
+// step, takes warpgroup 1's last turn.
+__device__ __forceinline__ void turn_begin(int cw) { named_sync(1 + cw, 256); }
+__device__ __forceinline__ void turn_end(int cw) { named_arrive(2 - cw, 256); }
+__device__ __forceinline__ void turns_open(int cw) {
+  if (cw == 1) named_arrive(1, 256);
+}
+__device__ __forceinline__ void turns_close(int cw) {
+  if (cw == 0) named_sync(1, 256);
+}
 
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap do_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap dq_map,
+                    const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ di, Strides os,
+                    Strides dos, int num_heads, int seq, float scale_log2, float sm_scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const Smem<kStagesDq> m(smem_raw);
   const int qt = gridDim.x - 1 - blockIdx.x;  // most keys first
   const int bh = blockIdx.y;
   const int b = bh / num_heads;
   const int h = bh % num_heads;
-  const int64_t seq = static_cast<int64_t>(gridDim.x) * kBlock;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+  // key tiles up to the last one's diagonal; a half-full last query tile
+  // (S % 128 == 64) has no second warpgroup's diagonal
+  const int n_tiles = min(2 * qt + 2, seq / kStream);
 
-  const int64_t q0 = static_cast<int64_t>(qt) * kBlock;
-  const __nv_bfloat16* qg = q + b * qs.b + h * qs.h + q0 * qs.s;
-  const __nv_bfloat16* dog = dout + b * dos.b + h * dos.h + q0 * dos.s;
-  const __nv_bfloat16* kg = k + b * ks.b + h * ks.h;
-  const __nv_bfloat16* vg = v + b * vs.b + h * vs.h;
-
-  load_tile(sQ, qg, qs.s, tid);
-  load_tile(sdO, dog, dos.s, tid);
-  load_tile(sK, kg, ks.s, tid);
-  load_tile(sV, vg, vs.s, tid);
-  cp_async_commit();
-
-  // Di of the tile's 64 rows: a warp per row at a time, 4 columns a lane
-  const __nv_bfloat16* og = o + b * os.b + h * os.h + q0 * os.s;
-  for (int r = warp; r < kBlock; r += kWarps) {
-    const uint2 ov = *reinterpret_cast<const uint2*>(og + r * os.s + lane * 4);
-    const uint2 dv = *reinterpret_cast<const uint2*>(dog + r * dos.s + lane * 4);
-    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float2 of = __bfloat1622float2(o2[i]);
-      const float2 df = __bfloat1622float2(d2[i]);
-      sum += of.x * df.x + of.y * df.y;
+  if (tid < 128) {  // producer warpgroup
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      m.load_owned(&q_map, &do_map, qt * kOwn, h, b);
+      for (int j = 0; j < n_tiles; ++j) m.acquire(j, &k_map, &v_map, j * kStream, h, b, 0);
     }
-#pragma unroll
-    for (int m = 16; m >= 1; m >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, m);
-    if (lane == 0) {
-      sDi[r] = sum;
-      di[bh * seq + q0 + r] = sum;
-    }
+    return;
   }
-  __syncthreads();
 
-  // phase A: rows ra.. (queries) x columns ca.. (keys); phase B: rows ra..
-  // x head-dimension columns cb..
-  const int ra = 16 * (warp & 3);
-  const int ca = 32 * (warp >> 2);
-  const int cb = 64 * (warp >> 2);
-  float lse2[2], dd[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    lse2[i] = lse[bh * seq + q0 + ra + g + 8 * i] * kLog2e;
-    dd[i] = sDi[ra + g + 8 * i];
-  }
-  float acc[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  setmaxnreg_inc<240>();
+  const int cw = tid / 128 - 1;  // consumer warpgroup: query rows 64 cw ..
+  const int warp = (tid / 32) % 4;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int r0 = qt * kOwn + 64 * cw + 16 * warp + g;  // this thread's rows r0, r0 + 8
+  const bool valid = qt * kOwn + 64 * cw < seq;        // rows past S in a half-full tile
+  const int last = 2 * qt + cw;                        // this warpgroup's diagonal key tile
+  const int n_active = valid ? last + 1 : 0;           // key tiles 0 .. last
 
-  const int n_tiles = qt + 1;  // key tiles up to and including the diagonal
-  for (int j = 0; j < n_tiles; ++j) {
-    const int st = j & 1;
-    if (j + 1 < n_tiles) {
-      const int64_t k1 = static_cast<int64_t>(j + 1) * kBlock;
-      load_tile(sK + (st ^ 1) * kTile, kg + k1 * ks.s, ks.s, tid);
-      load_tile(sV + (st ^ 1) * kTile, vg + k1 * vs.s, vs.s, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* sKs = sK + st * kTile;
-    const __nv_bfloat16* sVs = sV + st * kTile;
-
-    float s[4][4], dp[4][4];
-    score_products(s, dp, sQ + ra * kRow, sKs + ca * kRow, sdO + ra * kRow, sVs + ca * kRow,
-                   lane);
-    const bool diag = (j == qt);
+  // Di = rowsum(O * dO) of rows r0 and r0 + 8: each of the 4 threads of a
+  // row sums 32 columns, then a fixed shuffle tree adds the quarters.
+  float lse2[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
+  if (valid) {
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
+    for (int r = 0; r < 2; ++r) {
+      const int64_t row = r0 + 8 * r;
+      const uint4* op = reinterpret_cast<const uint4*>(o + b * os.b + h * os.h + row * os.s +
+                                                       32 * t);
+      const uint4* dp = reinterpret_cast<const uint4*>(dout + b * dos.b + h * dos.h +
+                                                       row * dos.s + 32 * t);
+      float sum = 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = ra + g + ((e >> 1) << 3);
-        const int col = ca + nt * 8 + 2 * t + (e & 1);
-        const float x = (diag && col > row) ? kMaskValue : s[nt][e] * scale_log2;
-        const float p = exp2f(x - lse2[e >> 1]);
-        s[nt][e] = p * (dp[nt][e] - dd[e >> 1]);  // dS
+      for (int c = 0; c < 4; ++c) {
+        const uint4 ov = op[c];
+        const uint4 dv = dp[c];
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 of = __bfloat1622float2(o2[e]);
+          const float2 df = __bfloat1622float2(d2[e]);
+          sum += of.x * df.x + of.y * df.y;
+        }
       }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      dd[r] = sum;
+      const int64_t at = static_cast<int64_t>(bh) * seq + row;
+      if (t == 0) di[at] = sum;
+      lse2[r] = lse[at] * kLog2e;
     }
-    store_p_tile(sdS, s, ra, ca, lane);
-    __syncthreads();
-    accumulate_product(acc, sdS + ra * kPRow, sKs, cb, lane);
-    __syncthreads();  // sdS and this stage are rewritten by the next step
   }
-  store_rows(dq + b * dqs.b + h * dqs.h + q0 * dqs.s, dqs.s, acc, sm_scale, ra, cb, lane);
+
+  float acc[64];  // dQ accumulator, 64 rows x 128
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  const char* q_wg = m.own0 + cw * 64 * 128;
+  const char* do_wg = m.own1 + cw * 64 * 128;
+  uint32_t dsf[kStream / 16][4];  // dS of the previous tile, bf16 A fragments
+
+  // dS = P * (dP - Di) of key tile j, in place in sc; the diagonal masked
+  auto form_ds = [&](float (&sc)[32], const float (&dp)[32], int j) {
+    const bool diag = (j == last);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      const int col = j * kStream + 8 * (i / 4) + 2 * t + (i & 1);
+      const float x = (diag && col > r0 + 8 * r) ? kMaskValue : sc[i] * scale_log2;
+      sc[i] = exp2_approx(x - lse2[r]) * (dp[i] - dd[r]);
+    }
+  };
+
+  turns_open(cw);
+  mbar_wait(m.own_full, 0);
+  // Step j issues S_j and dP_j, then dQ += dS_{j-1} K_{j-1}, and forms dS_j
+  // while the latter runs; step 0 has no predecessor and is peeled off, so
+  // every product in the loop is issued and waited for unconditionally.
+  if (n_active > 0) {
+    float sc[32], dp[32];
+    m.wait_full(0);
+    turn_begin(cw);
+    wgmma_fence();
+    issue_scores(sc, dp, q_wg, m.tile0(0), do_wg, m.tile1(0));
+    turn_end(cw);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    form_ds(sc, dp, 0);
+#pragma unroll
+    for (int kk = 0; kk < kStream / 16; ++kk) pack_a(dsf[kk], sc, kk);
+  }
+  for (int j = 1; j < n_active; ++j) {
+    float sc[32], dp[32];
+    m.wait_full(j);
+    turn_begin(cw);
+    wgmma_fence();
+    issue_scores(sc, dp, q_wg, m.tile0(j), do_wg, m.tile1(j));
+    issue_accumulate(acc, dsf, m.tile0(j - 1));  // dQ += dS_{j-1} K_{j-1}
+    turn_end(cw);
+    wgmma_wait<1>();
+    fence_regs(sc);
+    fence_regs(dp);
+    form_ds(sc, dp, j);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    m.release(j - 1, lane);
+#pragma unroll
+    for (int kk = 0; kk < kStream / 16; ++kk) pack_a(dsf[kk], sc, kk);
+  }
+  if (n_active > 0) {
+    wgmma_fence();
+    issue_accumulate(acc, dsf, m.tile0(n_active - 1));
+    wgmma_wait<0>();
+    fence_regs(acc);
+    m.release(n_active - 1, lane);
+  }
+  for (int j = n_active; j < n_tiles; ++j) {  // wholly above the diagonal
+    m.wait_full(j);
+    turn_begin(cw);
+    turn_end(cw);
+    m.release(j, lane);
+  }
+  turns_close(cw);
+  if (valid) {  // dQ through this warpgroup's rows of the Q tile
+    char* out = m.own0 + cw * 64 * 128;
+    stage_out(out, acc, sm_scale, warp, g, t);
+    fence_async_shared();
+    named_sync(3 + cw, 128);
+    if (tid % 128 == 0) {
+      store_out(&dq_map, out, qt * kOwn + 64 * cw, h, b);
+      tma_store_wait_read();
+    }
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ di,
-                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                     Strides qs, Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
-                     int num_heads, float scale_log2, float sm_scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + kTile;
-  __nv_bfloat16* sQ = sV + kTile;
-  __nv_bfloat16* sdO = sQ + 2 * kTile;
-  __nv_bfloat16* sP = sdO + 2 * kTile;
-  __nv_bfloat16* sdS = sP + kPTile;
-
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap do_map,
+                     const __grid_constant__ CUtensorMap dk_map,
+                     const __grid_constant__ CUtensorMap dv_map, const float* __restrict__ lse,
+                     const float* __restrict__ di, int num_heads, int seq, float scale_log2,
+                     float sm_scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const Smem<kStagesDkv> m(smem_raw);
   const int kt = blockIdx.x;  // key tile 0 sees every query: launched first
   const int bh = blockIdx.y;
   const int b = bh / num_heads;
   const int h = bh % num_heads;
-  const int n_tiles = gridDim.x;
-  const int64_t seq = static_cast<int64_t>(n_tiles) * kBlock;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+  const int first = 2 * kt;  // the first query tile that sees these keys
+  const int n_tiles = seq / kStream - first;
 
-  const int64_t k0 = static_cast<int64_t>(kt) * kBlock;
-  const __nv_bfloat16* qg = q + b * qs.b + h * qs.h;
-  const __nv_bfloat16* dog = dout + b * dos.b + h * dos.h;
-  const float* lse_bh = lse + bh * seq;
-  const float* di_bh = di + bh * seq;
-
-  load_tile(sK, k + b * ks.b + h * ks.h + k0 * ks.s, ks.s, tid);
-  load_tile(sV, v + b * vs.b + h * vs.h + k0 * vs.s, vs.s, tid);
-  load_tile(sQ, qg + k0 * qs.s, qs.s, tid);
-  load_tile(sdO, dog + k0 * dos.s, dos.s, tid);
-  cp_async_commit();
-
-  // phase A: rows ra.. (keys) x columns ca.. (queries); phase B: rows ra..
-  // x head-dimension columns cb..
-  const int ra = 16 * (warp & 3);
-  const int ca = 32 * (warp >> 2);
-  const int cb = 64 * (warp >> 2);
-  float acc_dv[8][4], acc_dk[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dv[n][e] = acc_dk[n][e] = 0.f;
-  }
-
-  for (int i = kt; i < n_tiles; ++i) {  // query tiles from the diagonal on
-    const int st = (i - kt) & 1;
-    if (i + 1 < n_tiles) {
-      const int64_t q1 = static_cast<int64_t>(i + 1) * kBlock;
-      load_tile(sQ + (st ^ 1) * kTile, qg + q1 * qs.s, qs.s, tid);
-      load_tile(sdO + (st ^ 1) * kTile, dog + q1 * dos.s, dos.s, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* sQs = sQ + st * kTile;
-    const __nv_bfloat16* sdOs = sdO + st * kTile;
-
-    // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries
-    float s[4][4], dp[4][4];
-    score_products(s, dp, sK + ra * kRow, sQs + ca * kRow, sV + ra * kRow, sdOs + ca * kRow,
-                   lane);
-    const int64_t q0 = static_cast<int64_t>(i) * kBlock;
-    const bool diag = (i == kt);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = ca + nt * 8 + 2 * t;  // query of element 0; element 1 is col + 1
-      const float2 l2 = *reinterpret_cast<const float2*>(lse_bh + q0 + col);
-      const float2 d2 = *reinterpret_cast<const float2*>(di_bh + q0 + col);
-      const float lse2[2] = {l2.x * kLog2e, l2.y * kLog2e};
-      const float dd[2] = {d2.x, d2.y};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = ra + g + ((e >> 1) << 3);
-        const float x = (diag && col + (e & 1) < row) ? kMaskValue : s[nt][e] * scale_log2;
-        const float p = exp2f(x - lse2[e & 1]);
-        s[nt][e] = p;                               // P^T
-        dp[nt][e] = p * (dp[nt][e] - dd[e & 1]);    // dS^T
+  if (tid < 128) {  // producer warpgroup
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      m.load_owned(&k_map, &v_map, kt * kOwn, h, b);
+      const float* lse_bh = lse + static_cast<int64_t>(bh) * seq;
+      const float* di_bh = di + static_cast<int64_t>(bh) * seq;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int row = (first + j) * kStream;
+        const int s = m.acquire(j, &q_map, &do_map, row, h, b, 2 * kRowBytes);
+        bulk_load(m.lse + s * kStream, lse_bh + row, kRowBytes, &m.full[s]);
+        bulk_load(m.di + s * kStream, di_bh + row, kRowBytes, &m.full[s]);
       }
     }
-    store_p_tile(sP, s, ra, ca, lane);
-    store_p_tile(sdS, dp, ra, ca, lane);
-    __syncthreads();
-    accumulate_product(acc_dv, sP + ra * kPRow, sdOs, cb, lane);
-    accumulate_product(acc_dk, sdS + ra * kPRow, sQs, cb, lane);
-    __syncthreads();  // sP, sdS and this stage are rewritten by the next step
+    return;
   }
-  store_rows(dv + b * dvs.b + h * dvs.h + k0 * dvs.s, dvs.s, acc_dv, 1.f, ra, cb, lane);
-  store_rows(dk + b * dks.b + h * dks.h + k0 * dks.s, dks.s, acc_dk, sm_scale, ra, cb, lane);
+
+  setmaxnreg_inc<240>();
+  const int cw = tid / 128 - 1;  // consumer warpgroup: key rows 64 cw ..
+  const int warp = (tid / 32) % 4;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int r0 = kt * kOwn + 64 * cw + 16 * warp + g;  // this thread's keys r0, r0 + 8
+  const bool valid = kt * kOwn + 64 * cw < seq;        // keys past S in a half-full tile
+  // the query tiles before this warpgroup's diagonal one see none of its keys
+  const int n_skip = valid ? cw : n_tiles;
+
+  float acc_dv[64], acc_dk[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc_dv[i] = acc_dk[i] = 0.f;
+  const char* k_wg = m.own0 + cw * 64 * 128;
+  const char* v_wg = m.own1 + cw * 64 * 128;
+
+  turns_open(cw);
+  mbar_wait(m.own_full, 0);
+  for (int j = 0; j < n_skip; ++j) {
+    m.wait_full(j);
+    turn_begin(cw);
+    turn_end(cw);
+    m.release(j, lane);
+  }
+  for (int j = n_skip; j < n_tiles; ++j) {
+    const int qi = first + j;
+    const char* q_s = m.tile0(j);
+    const char* do_s = m.tile1(j);
+    // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries
+    float st[32], dpt[32];
+    m.wait_full(j);
+    turn_begin(cw);
+    wgmma_fence();
+    issue_scores(st, dpt, k_wg, q_s, v_wg, do_s);
+    turn_end(cw);
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+    const bool diag = (j == cw);
+    const float* lse_s = m.lse + (j % kStagesDkv) * kStream;
+    const float* di_s = m.di + (j % kStagesDkv) * kStream;
+    float dd[kStream / 8][2];  // Di of this thread's query columns
+#pragma unroll
+    for (int c = 0; c < kStream / 8; ++c) {
+      const int col = 8 * c + 2 * t;  // query of elements 0 and 2; +1 for 1 and 3
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + col);
+      const float2 d2 = *reinterpret_cast<const float2*>(di_s + col);
+      const float lq[2] = {l2.x * kLog2e, l2.y * kLog2e};
+      dd[c][0] = d2.x;
+      dd[c][1] = d2.y;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int query = qi * kStream + col + (e & 1);
+        const float x =
+            (diag && query < r0 + 8 * (e >> 1)) ? kMaskValue : st[4 * c + e] * scale_log2;
+        st[4 * c + e] = exp2_approx(x - lq[e & 1]);  // P^T
+      }
+    }
+    // dV += P^T dO runs while dS^T is formed
+    uint32_t pf[kStream / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kStream / 16; ++kk) pack_a(pf[kk], st, kk);
+    wgmma_fence();
+    issue_accumulate(acc_dv, pf, do_s);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dpt[i] = st[i] * (dpt[i] - dd[i / 4][i & 1]);  // dS^T
+    uint32_t dsf[kStream / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kStream / 16; ++kk) pack_a(dsf[kk], dpt, kk);
+    wgmma_fence();
+    issue_accumulate(acc_dk, dsf, q_s);  // dK += dS^T Q
+    wgmma_wait<0>();
+    fence_regs(acc_dv);
+    fence_regs(acc_dk);
+    m.release(j, lane);
+  }
+  turns_close(cw);
+  if (valid) {  // dK and dV through this warpgroup's rows of the K and V tiles
+    char* out_k = m.own0 + cw * 64 * 128;
+    char* out_v = m.own1 + cw * 64 * 128;
+    stage_out(out_k, acc_dk, sm_scale, warp, g, t);
+    stage_out(out_v, acc_dv, 1.f, warp, g, t);
+    fence_async_shared();
+    named_sync(3 + cw, 128);
+    if (tid % 128 == 0) {
+      store_out(&dk_map, out_k, kt * kOwn + 64 * cw, h, b);
+      store_out(&dv_map, out_v, kt * kOwn + 64 * cw, h, b);
+      tma_store_wait_read();
+    }
+  }
 }
 
 }  // namespace
@@ -454,8 +556,8 @@ extern "C" {
 // 16-byte boundary (the wrapper checks both). lse: the forward's contiguous
 // float32 (B, H, S) log-sum-exp; di: contiguous float32 (B, H, S) scratch,
 // written by the first kernel and read by the second. Launches the dQ kernel
-// and then the dK/dV kernel on `stream`; returns the first non-zero
-// cudaGetLastError() (0 = cudaSuccess).
+// and then the dK/dV kernel on `stream`; returns 0 or the first cudaError_t
+// of the tensor maps' encoding, the launches' attributes or the launches.
 int ecoflap_flash_attn_bwd(const void* q, const void* k, const void* v, const void* o,
                            const void* dout, const void* lse, void* di, void* dq, void* dk,
                            void* dv, int batch, int heads, int seq, int head_dim,
@@ -465,11 +567,28 @@ int ecoflap_flash_attn_bwd(const void* q, const void* k, const void* v, const vo
                            int64_t doss, int64_t dqsb, int64_t dqsh, int64_t dqss,
                            int64_t dksb, int64_t dksh, int64_t dkss, int64_t dvsb,
                            int64_t dvsh, int64_t dvss, float sm_scale, void* stream) {
-  if (head_dim != kDh || seq <= 0 || seq % kBlock != 0 || batch <= 0 || heads <= 0 ||
+  if (head_dim != kDh || seq <= 0 || seq % kStream != 0 || batch <= 0 || heads <= 0 ||
       static_cast<int64_t>(batch) * heads > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // owned rows in boxes of 128, streamed rows in boxes of 64
+  CUtensorMap q_own, do_own, k_str, v_str, k_own, v_own, q_str, do_str, dq_map, dk_map, dv_map;
+  int rc = encode_bhsd(&q_own, q, batch, heads, seq, qsb, qsh, qss, kOwn);
+  if (rc == 0) rc = encode_bhsd(&do_own, dout, batch, heads, seq, dosb, dosh, doss, kOwn);
+  if (rc == 0) rc = encode_bhsd(&k_str, k, batch, heads, seq, ksb, ksh, kss, kStream);
+  if (rc == 0) rc = encode_bhsd(&v_str, v, batch, heads, seq, vsb, vsh, vss, kStream);
+  if (rc == 0) rc = encode_bhsd(&k_own, k, batch, heads, seq, ksb, ksh, kss, kOwn);
+  if (rc == 0) rc = encode_bhsd(&v_own, v, batch, heads, seq, vsb, vsh, vss, kOwn);
+  if (rc == 0) rc = encode_bhsd(&q_str, q, batch, heads, seq, qsb, qsh, qss, kStream);
+  if (rc == 0) rc = encode_bhsd(&do_str, dout, batch, heads, seq, dosb, dosh, doss, kStream);
+  // outputs, stored 64 rows (one warpgroup's) at a time
+  if (rc == 0) rc = encode_bhsd(&dq_map, dq, batch, heads, seq, dqsb, dqsh, dqss, 64);
+  if (rc == 0) rc = encode_bhsd(&dk_map, dk, batch, heads, seq, dksb, dksh, dkss, 64);
+  if (rc == 0) rc = encode_bhsd(&dv_map, dv, batch, heads, seq, dvsb, dvsh, dvss, 64);
+  if (rc != 0) return rc;
   // above 48 KB, dynamic shared memory must be asked for explicitly
+  constexpr int kSmemDq = smem_bytes<kStagesDq>();
+  constexpr int kSmemDkv = smem_bytes<kStagesDkv>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemDq);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -477,24 +596,18 @@ int ecoflap_flash_attn_bwd(const void* q, const void* k, const void* v, const vo
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemDkv);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(seq / kBlock, batch * heads);
+  const dim3 grid((seq + kOwn - 1) / kOwn, batch * heads);
   const float scale_log2 = sm_scale * kLog2e;
-  const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
-  const Strides dos{dosb, dosh, doss};
   flash_bwd_dq_kernel<<<grid, kThreads, kSmemDq, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(o),
+      q_own, do_own, k_str, v_str, dq_map, static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
-      static_cast<float*>(di), static_cast<__nv_bfloat16*>(dq), qs, ks, vs,
-      Strides{osb, osh, oss}, dos, Strides{dqsb, dqsh, dqss}, heads, scale_log2, sm_scale);
+      static_cast<float*>(di), Strides{osb, osh, oss}, Strides{dosb, dosh, doss}, heads, seq,
+      scale_log2, sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_bwd_dkv_kernel<<<grid, kThreads, kSmemDkv, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(di),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), qs, ks, vs, dos,
-      Strides{dksb, dksh, dkss}, Strides{dvsb, dvsh, dvss}, heads, scale_log2, sm_scale);
+      k_own, v_own, q_str, do_str, dk_map, dv_map, static_cast<const float*>(lse),
+      static_cast<const float*>(di), heads, seq, scale_log2, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 

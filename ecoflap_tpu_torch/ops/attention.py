@@ -22,8 +22,9 @@ tensor whose shapes are flash-eligible, chunked for sequences of 1024 and
 more, naive below that. A caller (the tests) forces a path with ``mode=``;
 the JAX package's ``ECOFLAP_ATTN`` override has no counterpart, so nothing
 outside the call can steer the card around the kernel. ``flash_block_sizes`` (attention.py:164-186)
-is a table of TPU tiles and has no counterpart: the CUDA kernel's tiles are
-fixed at 64 x 64.
+is a table of TPU tiles and has no counterpart: the CUDA kernels' tiles are
+fixed (forward: 128 query rows against 128-key tiles; backward: 128 owned
+rows against 64-row tiles), and they take any S % 64 == 0.
 
 Scale: the kernel and its plain version multiply the float32 scores by
 ``sm_scale``, as the TPU library does; ``_chunked`` and ``_naive`` scale the
@@ -173,28 +174,37 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+# The C entries' signatures: pointers, (B, H, S, Dh), each tensor's (batch,
+# head, sequence) strides, sm_scale and the stream.
+FWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_int64] * 12
+                + [ctypes.c_float, ctypes.c_void_p])
+BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_int64] * 24
+                + [ctypes.c_float, ctypes.c_void_p])
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the flash entries' argument and result types on ``lib`` (a
+    build of ``csrc/flash_attn.cu`` or ``csrc/flash_attn_bwd.cu``)."""
+    for name, argtypes in (("ecoflap_flash_attn_fwd", FWD_ARGTYPES),
+                           ("ecoflap_flash_attn_bwd", BWD_ARGTYPES)):
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     from ecoflap_tpu_torch.ops.build import load
 
-    lib = load("flash_attn")
-    lib.ecoflap_flash_attn_fwd.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_int64] * 12
-        + [ctypes.c_float, ctypes.c_void_p])
-    lib.ecoflap_flash_attn_fwd.restype = ctypes.c_int
-    return lib
+    return bind(load("flash_attn"))
 
 
 @functools.lru_cache(maxsize=None)
 def _bwd_lib() -> ctypes.CDLL:
     from ecoflap_tpu_torch.ops.build import load
 
-    lib = load("flash_attn_bwd")
-    lib.ecoflap_flash_attn_bwd.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_int64] * 24
-        + [ctypes.c_float, ctypes.c_void_p])
-    lib.ecoflap_flash_attn_bwd.restype = ctypes.c_int
-    return lib
+    return bind(load("flash_attn_bwd"))
 
 
 def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

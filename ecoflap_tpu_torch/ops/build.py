@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` under the checkout
 (listed in ``.gitignore``), then loaded with ``ctypes``. The hash covers the
-source and the flags, so an edited source rebuilds and a stale library is
-never loaded. Nothing is built when a module is imported: the CPU tests import
+source, every shared header ``csrc/*.cuh`` (by name and content) and the
+flags, so an edited source or header rebuilds and a stale library is never
+loaded. Nothing is built when a module is imported: the CPU tests import
 every module on a machine without ``nvcc``.
 """
 
@@ -39,9 +40,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[Path, str]]:
