@@ -57,13 +57,21 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
-# per element: 10 Philox rounds of 2 32x32->64 multiplies (4 ops) and 4
-# XORs, 9 key bumps of 2 adds, 2 shifts; then 2 int->float, 2 scalings, a
-# clamp, log, a product, sqrt, a product, cos, a product, scale*z, the add
-PERTURB_OPS_PER_ELEMENT = 10 * 8 + 9 * 2 + 2 + 13
+# per Philox counter (four elements): 10 rounds of 2 32x32->64 multiplies (4
+# ops) and 4 XORs, its round keys from the host; per word pair (two
+# elements): 2 shifts, 2 int->float, 2 scalings, a clamp, log, a product,
+# sqrt, the angle's product, cos, sin and 2 products; per element: scale*z
+# and the add
+PERTURB_OPS_PER_ELEMENT = (10 * 8 + 2 * (2 + 13) + 4 * 2) / 4
+# the same function counted for a stream of one element per Philox call with
+# the key schedule run per element (printed once, for comparison)
+PERTURB_OPS_ONE_ELEMENT_PER_CALL = 10 * 8 + 9 * 2 + 2 + 13
 XL_SHAPES = [(4224, 1408), (1408, 1408), (6144, 1408), (1408, 6144),
              (2048, 2048), (5120, 2048), (2048, 5120)]
 RAGGED = (301, 577)
+# a (3, 301, 577) leaf: leaf[1] starts 173,677 elements in, off any 16-byte
+# boundary and at an odd element (kernel: scalar head, odd-phase vectors)
+RAGGED_LEAF = (3, *RAGGED)
 OUT_OF_PLACE_SHAPES = [(4224, 1408), (5120, 2048), RAGGED]
 # LLaMA-7B target shapes per block: q, k, v, o; gate, up; down
 LLAMA_SHAPES = [(4096, 4096)] * 4 + [(11008, 4096)] * 2 + [(4096, 11008)]
@@ -152,9 +160,11 @@ def check_perturb(P, torch, shape, dtype):
     dev = torch.device("cuda")
     n = shape[0] * shape[1]
     seed = 0x9E3779B97F4A7C15 ^ (shape[0] << 20 | shape[1])
-    k0, k1 = P.philox_words_cuda(n, seed, dev)
-    r0, r1 = P.philox_words_ref(n, seed, dev)
-    assert torch.equal(k0, r0) and torch.equal(k1, r1), f"{shape}: Philox words differ"
+    m = -(-n // P.ELEMENTS_PER_COUNTER)  # the counters the n elements use
+    kw = P.philox_stream_cuda(m, seed, dev)
+    rw = P.philox_stream_ref(m, seed, dev)
+    assert all(torch.equal(a, b) for a, b in zip(kw, rw)), f"{shape}: Philox words differ"
+    del kw, rw
 
     zk = torch.zeros(shape, dtype=torch.float32, device=dev)
     zr = torch.zeros_like(zk)
@@ -171,14 +181,7 @@ def check_perturb(P, torch, shape, dtype):
     wk, wr = w0.clone(), w0.clone()
     P.perturb_inplace(wk, seed, 1e-3)
     P.perturb_inplace_ref(wr, seed, 1e-3)
-    err = (wk.float() - wr.float()).abs().max().item()
-    if dtype == torch.bfloat16:
-        bits = (wk.view(torch.int16).int() - wr.view(torch.int16).int()).abs()
-        assert bits.max().item() <= 1, f"{shape}: bf16 outputs > 1 ulp apart"
-        mism = (bits > 0).float().mean().item()
-        assert mism <= BF16_MISMATCH_SHARE, f"{shape}: {mism} of bf16 outputs differ"
-    else:
-        assert err <= 1e-6, f"{shape}: f32 outputs differ by {err}"
+    err = close_to_plain(torch, wk, wr, str(shape))
 
     plus = torch.zeros(shape, dtype=dtype, device=dev)
     minus = torch.zeros_like(plus)
@@ -198,6 +201,46 @@ def check_perturb(P, torch, shape, dtype):
     return err, ulps
 
 
+def close_to_plain(torch, got, want, what):
+    """Kernel output against the plain version's: f32 within 1e-6; bf16 at
+    most one ulp apart, on at most BF16_MISMATCH_SHARE of the elements."""
+    err = (got.float() - want.float()).abs().max().item()
+    if got.dtype == torch.bfloat16:
+        bits = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
+        assert bits.max().item() <= 1, f"{what}: bf16 outputs > 1 ulp apart"
+        mism = (bits > 0).float().mean().item()
+        assert mism <= BF16_MISMATCH_SHARE, f"{what}: {mism} of bf16 outputs differ"
+    else:
+        assert err <= 1e-6, f"{what}: f32 outputs differ by {err}"
+    return err
+
+
+def check_perturb_view(P, torch, dtype):
+    """Both entries on leaf[1] of a ragged leaf, a view that starts off any
+    16-byte boundary: against the plain version, bit for bit against the
+    kernel on a contiguous copy (alignment never changes z), the other
+    blocks untouched; returns the worst |kernel - plain|."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    leaf = (torch.randn(RAGGED_LEAF, generator=g, device=dev) * 0.02).to(dtype)
+    keep = leaf.clone()
+    view = leaf[1]
+    assert view.data_ptr() % 16 != 0 and view.storage_offset() % 2 == 1
+    seed = 0x2545F4914F6CDD1D
+    want = P.perturb_ref(view, seed, 1e-3)
+    copy = view.clone()
+    out = P.perturb(view, seed, 1e-3)
+    assert torch.equal(leaf, keep), f"perturb {dtype} view: the input was written"
+    P.perturb_block_inplace(leaf, 1, seed, 1e-3)
+    P.perturb_inplace(copy, seed, 1e-3)
+    assert torch.equal(leaf[1], copy), f"{dtype} view: z depends on the start address"
+    assert torch.equal(out, copy), f"perturb {dtype} view: differs from in place"
+    assert torch.equal(leaf[0], keep[0]) and torch.equal(leaf[2], keep[2]), "blocks touched"
+    err = close_to_plain(torch, leaf[1], want, f"{dtype} view")
+    torch.cuda.synchronize()
+    return err
+
+
 def check_perturb_out_of_place(P, torch, shape, dtype):
     """``perturb`` vs its plain version, vs the in-place kernel (bit for bit)
     and its input left untouched; returns the worst |kernel - plain|."""
@@ -212,14 +255,7 @@ def check_perturb_out_of_place(P, torch, shape, dtype):
     P.perturb_inplace(inplace, seed, 1e-3)
     assert torch.equal(out, inplace), f"perturb {shape}: differs from in place"
     ref = P.perturb_ref(w, seed, 1e-3)
-    err = (out.float() - ref.float()).abs().max().item()
-    if dtype == torch.bfloat16:
-        bits = (out.view(torch.int16).int() - ref.view(torch.int16).int()).abs()
-        assert bits.max().item() <= 1, f"perturb {shape}: bf16 > 1 ulp apart"
-        mism = (bits > 0).float().mean().item()
-        assert mism <= BF16_MISMATCH_SHARE, f"perturb {shape}: {mism} differ"
-    else:
-        assert err <= 1e-6, f"perturb {shape}: f32 outputs differ by {err}"
+    err = close_to_plain(torch, out, ref, f"perturb {shape}")
     torch.cuda.synchronize()
     return err
 
@@ -371,29 +407,99 @@ def time_cuda(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def c_launch(P, entry, *tensors, dev):
+    """One launch of a perturbation C entry on bf16 ``tensors`` (seed 7,
+    scale 1e-3), its ctypes arguments prepared once: the kernel's own time
+    when timed back to back, since its host side (a few us) is shorter than
+    the kernel. The wrapper's host side is timed apart."""
+    import ctypes
+
+    n = tensors[0].numel()
+    args = (*(ctypes.c_void_p(t.data_ptr()) for t in tensors), 1, ctypes.c_uint64(n),
+            ctypes.c_uint64(7), ctypes.c_float(1e-3), ctypes.c_void_p(P._stream(dev)))
+    fn = getattr(P._lib(), entry)
+
+    def launch():
+        rc = fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"{entry} launch failed: cudaError_t {rc}")
+    return launch
+
+
 def time_perturb(P, torch, shape):
+    """The in-place kernel (by its C entry) and, for comparison, through its
+    wrapper, whose host side bounds the rate of back-to-back launches at the
+    smaller shapes."""
     dev = torch.device("cuda")
     n = shape[0] * shape[1]
     w = (torch.randn(shape, device=dev) * 0.02).to(torch.bfloat16)
     g = torch.Generator(device=dev).manual_seed(0)
-    ms = time_cuda(torch, lambda: P.perturb_inplace(w, 7, 1e-3), 50)
+    ms = time_cuda(torch, c_launch(P, "ecoflap_perturb_inplace", w, dev=dev), 50)
+    wrapper = time_cuda(torch, lambda: P.perturb_inplace(w, 7, 1e-3), 50)
     plain = time_cuda(torch, lambda: P.perturb_inplace_ref(w, 7, 1e-3), 5)
     yard = time_cuda(torch, lambda: w.add_(torch.randn(
         shape, generator=g, device=dev, dtype=w.dtype).mul_(1e-3)), 20)
     bytes_ms = 2 * n * w.element_size() / HBM_BYTES_PER_S * 1e3
     ops_ms = PERTURB_OPS_PER_ELEMENT * n / F32_OPS_PER_S * 1e3
-    return {"shape": list(shape), "ms": ms, "plain_ms": plain,
+    return {"shape": list(shape), "ms": ms, "wrapper_ms": wrapper, "plain_ms": plain,
             "three_call_yardstick_ms": yard, "bytes_bound_ms": bytes_ms,
             "ops_bound_ms": ops_ms}
+
+
+def time_perturb_host(P, torch, perturb_seed):
+    """Host time of one in-place launch as the MeZO loop issues it, in
+    microseconds: the median over 200 calls, each into an idle queue, of the
+    seed (``perturb_seed``'s SeedSequence), the device guard with the stream
+    lookup, the ctypes call alone (it launches the kernel), and the whole
+    wrapper with its seed."""
+    import statistics
+
+    dev = torch.device("cuda")
+    w = torch.zeros(XL_SHAPES[0], dtype=torch.bfloat16, device=dev)
+    launch = c_launch(P, "ecoflap_perturb_inplace", w, dev=dev)
+
+    def guard():
+        with torch.cuda.device(dev):
+            P._stream(dev)
+
+    pieces = {"perturb_seed": lambda i: perturb_seed(SEED, i, 0, 0),
+              "device_guard_and_stream": lambda i: guard(),
+              "ctypes_launch": lambda i: launch(),
+              "wrapper_with_seed": lambda i: P.perturb_inplace(
+                  w, perturb_seed(SEED, i, 0, 0), 1e-3)}
+    out = {}
+    for name, fn in pieces.items():
+        times = []
+        for i in range(200):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(i)
+            times.append(time.perf_counter() - t0)
+        out[name] = statistics.median(times) * 1e6
+    torch.cuda.synchronize()
+    return out
+
+
+def perturb_launch_weights():
+    """{(out, in): launches} of the perturbation kernel over the two
+    zeroth-order paths: 3 per target and coarse microbatch."""
+    weights = {}
+    for s in xl_target_shapes():
+        weights[s] = weights.get(s, 0) + 3 * (NUM_DATA_FIRST_STAGE // BATCH_SIZE)
+    for s in LLAMA_SHAPES * LLAMA_LAYERS:
+        weights[s] = weights.get(s, 0) + 3 * (LLAMA_FIRST_STAGE // BATCH_SIZE)
+    return weights
 
 
 def time_perturb_out_of_place(P, torch, shape):
     dev = torch.device("cuda")
     n = shape[0] * shape[1]
     w = (torch.randn(shape, device=dev) * 0.02).to(torch.bfloat16)
-    ms = time_cuda(torch, lambda: P.perturb(w, 7, 1e-3), 50)
+    out = torch.empty_like(w)
+    ms = time_cuda(torch, c_launch(P, "ecoflap_perturb", w, out, dev=dev), 50)
+    wrapper = time_cuda(torch, lambda: P.perturb(w, 7, 1e-3), 50)
     plain = time_cuda(torch, lambda: P.perturb_ref(w, 7, 1e-3), 5)
-    return {"shape": list(shape), "ms": ms, "plain_ms": plain,
+    return {"shape": list(shape), "ms": ms, "wrapper_ms": wrapper, "plain_ms": plain,
             "bytes_bound_ms": 2 * n * w.element_size() / HBM_BYTES_PER_S * 1e3,
             "ops_bound_ms": PERTURB_OPS_PER_ELEMENT * n / F32_OPS_PER_S * 1e3}
 
@@ -466,8 +572,9 @@ def bound(t):
 
 
 def ptxas_usage(log):
-    """{kernel: {"registers", "spill_stores", "spill_loads"}} from one
-    library's ``nvcc -Xptxas -v`` output (the register count is the launch's;
+    """{kernel: {"registers", "stack_frame", "spill_stores", "spill_loads",
+    "instances"}} from one library's ``nvcc -Xptxas -v`` output, the largest
+    over a template kernel's instances (the register count is the launch's;
     a warp-specialised kernel's warpgroups then move registers between them
     with setmaxnreg)."""
     usage, kernel = {}, None
@@ -476,13 +583,18 @@ def ptxas_usage(log):
             found = re.search(r"\d([a-z][a-z_]*_kernel)", line)
             kernel = found.group(1) if found else None
             if kernel:
-                usage[kernel] = {}
-        elif kernel and "spill stores" in line:
-            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            usage[kernel]["spill_stores"] = int(found.group(1))
-            usage[kernel]["spill_loads"] = int(found.group(2))
+                u = usage.setdefault(kernel, {"instances": 0})
+                u["instances"] += 1
+            continue
+        fields = ()
+        if kernel and "spill stores" in line:
+            found = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                              r"(\d+) bytes spill loads", line)
+            fields = zip(("stack_frame", "spill_stores", "spill_loads"), found.groups())
         elif kernel and "Used" in line and "registers" in line:
-            usage[kernel]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            fields = [("registers", re.search(r"Used (\d+) registers", line).group(1))]
+        for key, val in fields:
+            usage[kernel][key] = max(usage[kernel].get(key, 0), int(val))
     return usage
 
 
@@ -675,8 +787,9 @@ def main(argv=None) -> int:
     for name, (lib, ptxas) in built.items():
         usage[name] = ptxas_usage(ptxas)
         for kernel, u in usage[name].items():
-            log(f"  {name} {kernel}: {u.get('registers')} registers, "
-                f"{u.get('spill_stores')} bytes spill stores, "
+            log(f"  {name} {kernel} ({u['instances']} instance(s), the largest): "
+                f"{u.get('registers')} registers, {u.get('stack_frame')} bytes stack "
+                f"frame, {u.get('spill_stores')} bytes spill stores, "
                 f"{u.get('spill_loads')} bytes spill loads")
         for line in ptxas.splitlines():
             if "Performance Loss" in line:  # e.g. wgmma serialised by ptxas
@@ -690,7 +803,13 @@ def main(argv=None) -> int:
             worst_err, worst_ulp = max(worst_err, err), max(worst_ulp, ulps)
     log(f"perturb_inplace vs plain: all {2 * (len(XL_SHAPES) + 1)} cases pass; "
         f"worst |w_kernel - w_plain| {worst_err:.3e} (scale 1e-3), "
-        f"worst z {worst_ulp:.0f} ulp, Philox words bit-identical")
+        f"worst z {worst_ulp:.0f} ulp, Philox words (four per counter) bit-identical")
+    view_err = max(check_perturb_view(P, torch, dtype)
+                   for dtype in (torch.bfloat16, torch.float32))
+    worst_err = max(worst_err, view_err)
+    log(f"perturb_inplace and perturb on leaf[1] of a {RAGGED_LEAF} leaf (a view "
+        f"off any 16-byte boundary), bf16 and f32: bit-identical to a contiguous "
+        f"copy, other blocks untouched, worst |kernel - plain| {view_err:.3e}")
     oop_err = max(check_perturb_out_of_place(P, torch, shape, dtype)
                   for dtype in (torch.bfloat16, torch.float32)
                   for shape in OUT_OF_PLACE_SHAPES)
@@ -727,15 +846,39 @@ def main(argv=None) -> int:
         t = time_perturb(P, torch, shape)
         timings[shape] = t
         b, by = bound(t)
-        log(f"perturb_inplace bf16 {shape[0]}x{shape[1]}: kernel {t['ms']:.4f} ms | "
+        log(f"perturb_inplace bf16 {shape[0]}x{shape[1]}: kernel {t['ms']:.4f} ms "
+            f"(through the wrapper {t['wrapper_ms']:.4f} ms) | "
             f"bound {b:.4f} ms ({by}) | plain {t['plain_ms']:.3f} ms | "
             f"yardstick randn+mul_+add_ (three calls) "
             f"{t['three_call_yardstick_ms']:.4f} ms")
+    weights = perturb_launch_weights()
+
+    def avg(key):
+        return sum(timings[s][key] * w for s, w in weights.items()) / sum(weights.values())
+
+    p_bound, p_by = bound({"bytes_bound_ms": avg("bytes_bound_ms"),
+                           "ops_bound_ms": avg("ops_bound_ms")})
+    old_ops_ms = avg("ops_bound_ms") * PERTURB_OPS_ONE_ELEMENT_PER_CALL / PERTURB_OPS_PER_ELEMENT
+    log(f"perturb_inplace launch-weighted over both zeroth-order paths "
+        f"({sum(weights.values())} launches): kernel {avg('ms'):.4f} ms (through the "
+        f"wrapper {avg('wrapper_ms'):.4f} ms) | bound "
+        f"{p_bound:.4f} ms ({p_by}, {PERTURB_OPS_PER_ELEMENT} operations an element) | "
+        f"share of bound {p_bound / avg('ms'):.3f} | the former count "
+        f"({PERTURB_OPS_ONE_ELEMENT_PER_CALL} an element) would bound it at "
+        f"{old_ops_ms:.4f} ms | plain {avg('plain_ms'):.3f} ms")
+    from ecoflap_tpu_torch.pruning.mezo import perturb_seed
+
+    host = time_perturb_host(P, torch, perturb_seed)
+    log("perturb_inplace host side per launch (median of 200 calls into an idle "
+        "queue): " + ", ".join(f"{k} {v:.2f} us" for k, v in host.items())
+        + f" | device time at {XL_SHAPES[0][0]}x{XL_SHAPES[0][1]} "
+        f"{timings[XL_SHAPES[0]]['ms'] * 1e3:.2f} us")
     oop_t = [time_perturb_out_of_place(P, torch, s) for s in OUT_OF_PLACE_SHAPES[:2]]
     for t in oop_t:
         b, by = bound(t)
-        log(f"perturb bf16 {t['shape'][0]}x{t['shape'][1]}: kernel {t['ms']:.4f} ms | "
-            f"bound {b:.4f} ms ({by}) | plain {t['plain_ms']:.3f} ms")
+        log(f"perturb bf16 {t['shape'][0]}x{t['shape'][1]}: kernel {t['ms']:.4f} ms "
+            f"(through the wrapper, with its output's allocation, {t['wrapper_ms']:.4f} "
+            f"ms) | bound {b:.4f} ms ({by}) | plain {t['plain_ms']:.3f} ms")
     flash_t = time_flash(A, torch, FLASH_SHAPES[0])
     fb, fby = bound(flash_t)
     log(f"flash_attention {tuple(flash_t['shape'])}: kernel {flash_t['ms']:.4f} ms | "
@@ -868,19 +1011,8 @@ def main(argv=None) -> int:
         f"{grad_rel:.3e} (gate {LLAMA_GRAD_SUMS_RTOL}), bit-identical over two "
         f"card runs")
 
-    # per launch, launch-weighted over both paths' targets (BLIP-2: 3 launches
-    # per target and microbatch; LLaMA likewise)
-    weights = {}
-    for s in shapes:
-        weights[s] = weights.get(s, 0) + 3 * n_mb
-    for s in LLAMA_SHAPES * LLAMA_LAYERS:
-        weights[s] = weights.get(s, 0) + 3 * llama_mb
-
-    def avg(key):
-        return sum(timings[s][key] * w for s, w in weights.items()) / sum(weights.values())
-
-    p_bound, p_by = bound({"bytes_bound_ms": avg("bytes_bound_ms"),
-                           "ops_bound_ms": avg("ops_bound_ms")})
+    assert sum(perturb_launch_weights().values()) == (
+        blip_counts["perturb_inplace"] + llama_counts["perturb_inplace"])
     o_bound, o_by = bound({k: sum(t[k] for t in oop_t) / len(oop_t)
                            for k in ("bytes_bound_ms", "ops_bound_ms")})
     paths = {"blip2_t5": blip_counts, "llama": llama_counts,
@@ -894,7 +1026,9 @@ def main(argv=None) -> int:
          "launches": launches["perturb_inplace"],
          "launches_by_path": by_path["perturb_inplace"], "max_abs_err": worst_err,
          "ms": avg("ms"), "plain_ms": avg("plain_ms"),
-         "bound_ms": p_bound, "bound_by": p_by, "library_ms": None},
+         "bound_ms": p_bound, "bound_by": p_by, "library_ms": None,
+         "bound_share": p_bound / avg("ms"), "wrapper_ms": avg("wrapper_ms"), "host_us": host,
+         "ptxas": usage.get("perturb") or None},
         {"name": "perturb", "route": "cuda",
          "source": "ecoflap_tpu_torch/csrc/perturb.cu",
          "replaces": "ecoflap_tpu/ops/perturb.py:31",
@@ -902,7 +1036,8 @@ def main(argv=None) -> int:
          "max_abs_err": oop_err,
          "ms": sum(t["ms"] for t in oop_t) / len(oop_t),
          "plain_ms": sum(t["plain_ms"] for t in oop_t) / len(oop_t),
-         "bound_ms": o_bound, "bound_by": o_by, "library_ms": None},
+         "bound_ms": o_bound, "bound_by": o_by, "library_ms": None,
+         "wrapper_ms": sum(t["wrapper_ms"] for t in oop_t) / len(oop_t)},
         {"name": "flash_attention", "route": "cuda",
          "source": "ecoflap_tpu_torch/csrc/flash_attn.cu",
          "replaces": "ecoflap_tpu/ops/attention.py:189",

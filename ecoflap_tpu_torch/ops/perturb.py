@@ -4,11 +4,13 @@
 Port of ``ecoflap_tpu/ops/perturb.py:perturb_block_inplace`` (the Pallas
 kernel ``_perturb_block_kernel``) and of ``perturb`` (``_perturb_kernel``),
 the two entries of one CUDA source (``csrc/perturb.cu``). The kernel
-draws z from a counter-based Philox4x32-10 keyed by a 64-bit seed, counter =
-the element's linear index, and fuses the add: one read and one write of the
-weight, no noise buffer. Same seed -> same z, so ``+eps, -2eps, +eps``
-restores the weight to about one rounding and ``+-eps`` is an exact
-antithetic pair.
+draws z from a counter-based Philox4x32-10 keyed by a 64-bit seed and fuses
+the add: one read and one write of the weight, no noise buffer. Counter j
+gives four words, two Box-Muller pairs, and each pair both its branches:
+elements 4j and 4j + 1 are the cos and sin of words (0, 1), elements 4j + 2
+and 4j + 3 those of words (2, 3); the cos branch is the TPU kernel's
+transform. Same seed -> same z, so ``+eps, -2eps, +eps`` restores the
+weight to about one rounding and ``+-eps`` is an exact antithetic pair.
 
 The noise differs bitwise from the TPU's PRNG (a documented deviation; MeZO
 needs i.i.d. N(0, 1) only). ``perturb_ref`` and ``perturb_inplace_ref`` are
@@ -30,7 +32,9 @@ import torch
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _MASK32 = 0xFFFFFFFF
+_TWO_PI_F32 = float(torch.tensor(2.0 * math.pi, dtype=torch.float32))  # the kernel's 2 pi
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+ELEMENTS_PER_COUNTER = 4  # the kernel's kPerCounter
 
 Words = Tuple[torch.Tensor, torch.Tensor]
 
@@ -62,34 +66,63 @@ def philox4x32_10(counter: Tuple[torch.Tensor, ...], key: Tuple[int, int]):
     return c0, c1, c2, c3
 
 
-def philox_words_ref(n: int, seed: int, device) -> Words:
-    """Element i's two words: Philox of counter (lo(i), hi(i), 0, 0), key
-    (lo(seed), hi(seed)) -- the kernel's stream."""
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    zero = torch.zeros_like(idx)
-    w = philox4x32_10((idx & _MASK32, idx >> 32, zero, zero),
-                      (seed & _MASK32, (seed >> 32) & _MASK32))
-    return w[0], w[1]
+def philox_stream_ref(m: int, seed: int, device) -> Tuple[torch.Tensor, ...]:
+    """The four words of counters 0..m-1: Philox of counter (lo(j), hi(j),
+    0, 0), key (lo(seed), hi(seed)) -- the kernel's raw stream."""
+    j = torch.arange(m, dtype=torch.int64, device=device)
+    zero = torch.zeros_like(j)
+    return philox4x32_10((j & _MASK32, j >> 32, zero, zero),
+                         (seed & _MASK32, (seed >> 32) & _MASK32))
+
+
+def box_muller(w0: torch.Tensor, w1: torch.Tensor) -> Words:
+    """Both branches of Box-Muller from two 32-bit words (the TPU kernel's
+    transform, perturb.py:61-68, is the cos branch): 24 bits each, u1
+    clamped at 1e-7, r = sqrt(-2 ln u1), theta = 2 pi u2; float32 results
+    ``(r cos theta, r sin theta)``, rounded where the kernel rounds.
+
+    On the card the math is float32 through the card's own log, sqrt, cos
+    and sin, those the kernel calls, so the plain version gives the kernel's
+    z bit for bit. On the CPU it runs in float64 and rounds to float32 at the
+    same points (u1, theta; log u1, each of cos and sin theta, once each and
+    correctly in practice; the square root; the products): square root and
+    products come out as float32 arithmetic would give them, and log, cos
+    and sin never go through the CPU's float32 vector math, so no code path,
+    thread or process state moves the result."""
+    f32, f64 = torch.float32, torch.float64
+    if w0.device.type == "cuda":
+        u1 = torch.clamp_min((w0 >> 8).to(f32) * 2.0 ** -24, 1e-7)
+        theta = (w1 >> 8).to(f32) * 2.0 ** -24 * _TWO_PI_F32
+        r = torch.sqrt(-2.0 * torch.log(u1))
+        return r * torch.cos(theta), r * torch.sin(theta)
+    u1 = torch.clamp_min((w0 >> 8).to(f64) * 2.0 ** -24, 1e-7).to(f32)
+    theta = ((w1 >> 8).to(f64) * 2.0 ** -24 * _TWO_PI_F32).to(f32).to(f64)
+    r = torch.sqrt(-2.0 * torch.log(u1.to(f64)).to(f32).to(f64)).to(f32).to(f64)
+    return ((r * torch.cos(theta).to(f32).to(f64)).to(f32),
+            (r * torch.sin(theta).to(f32).to(f64)).to(f32))
 
 
 def words_to_normal(w0: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
-    """Box-Muller, cos branch, from two 32-bit words (TPU kernel
-    perturb.py:61-68): 24 bits each, u1 clamped at 1e-7, float32 math."""
-    u1 = (w0 >> 8).to(torch.float32) * 2.0 ** -24
-    u2 = (w1 >> 8).to(torch.float32) * 2.0 ** -24
-    u1 = torch.clamp_min(u1, 1e-7)
-    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(u2 * (2.0 * math.pi))
+    """The TPU kernel's transform: the cos branch of ``box_muller``."""
+    return box_muller(w0, w1)[0]
+
+
+def normals_ref(n: int, seed: int, device) -> torch.Tensor:
+    """z of elements 0..n-1 as the kernel draws them: counter j's words
+    (0, 1) give elements 4j, 4j + 1 (cos, sin), its words (2, 3) elements
+    4j + 2, 4j + 3."""
+    w0, w1, w2, w3 = philox_stream_ref(-(-n // ELEMENTS_PER_COUNTER), seed, device)
+    return torch.stack((*box_muller(w0, w1), *box_muller(w2, w3)), 1).reshape(-1)[:n]
 
 
 def perturb_ref(w: torch.Tensor, seed: int, scale: float,
                 words: Optional[Words] = None) -> torch.Tensor:
     """Plain version of the out-of-place kernel: a new tensor, ``w`` is not
-    touched. ``words`` overrides the Philox words (any shape that broadcasts
-    over the flat tensor); only tests use it."""
+    touched. ``words`` replaces the stream by one word pair per element (any
+    shape that broadcasts over the flat tensor) through the TPU kernel's
+    transform; only tests use it."""
     _check(w, seed)
-    if words is None:
-        words = philox_words_ref(w.numel(), seed, w.device)
-    z = words_to_normal(*words)
+    z = normals_ref(w.numel(), seed, w.device) if words is None else words_to_normal(*words)
     out = w.reshape(-1).to(torch.float32) + z * float(scale)
     return out.to(w.dtype).view(w.shape)
 
@@ -116,11 +149,8 @@ def _check(w: torch.Tensor, seed: int) -> None:
         raise ValueError(f"seed {seed} is not a 64-bit unsigned integer")
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    from ecoflap_tpu_torch.ops.build import load
-
-    lib = load("perturb")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C entries' argument types on a loaded ``csrc/perturb.cu``."""
     lib.ecoflap_perturb_inplace.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64, ctypes.c_uint64,
         ctypes.c_float, ctypes.c_void_p]
@@ -133,6 +163,13 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_void_p]
     lib.ecoflap_philox_words.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    from ecoflap_tpu_torch.ops.build import load
+
+    return bind(load("perturb"))
 
 
 def _stream(device: torch.device) -> int:
@@ -163,6 +200,17 @@ def perturb_inplace(w: torch.Tensor, seed: int, scale: float) -> torch.Tensor:
 perturb_inplace.launches = 0
 
 
+def _empty_in_phase(w: torch.Tensor) -> torch.Tensor:
+    """An empty tensor like ``w`` that starts at ``w``'s distance from a
+    16-byte boundary, so the kernel reads ``w`` and writes it by the same
+    16-byte vectors (``w`` may be a view that starts anywhere)."""
+    off = w.data_ptr() % 16 // w.element_size()
+    if off == 0:
+        return torch.empty_like(w)  # the allocator's blocks are 512-byte aligned
+    buf = torch.empty(w.numel() + off, dtype=w.dtype, device=w.device)
+    return buf[off:].view(w.shape)
+
+
 def perturb(w: torch.Tensor, seed: int, scale: float) -> torch.Tensor:
     """``w + scale * z(seed)`` as a new tensor, on a contiguous 2-D float32 or
     bfloat16 weight of any shape (``ecoflap_tpu/ops/perturb.py:perturb``).
@@ -175,7 +223,7 @@ def perturb(w: torch.Tensor, seed: int, scale: float) -> torch.Tensor:
         return perturb_ref(w, seed, scale)
     if w.device.type != "cuda":
         raise ValueError(f"perturb: unsupported device {w.device}")
-    out = torch.empty_like(w)
+    out = _empty_in_phase(w)
     with torch.cuda.device(w.device):
         rc = _lib().ecoflap_perturb(
             ctypes.c_void_p(w.data_ptr()), ctypes.c_void_p(out.data_ptr()),
@@ -199,18 +247,18 @@ def perturb_block_inplace(leaf: torch.Tensor, idx: int, seed: int,
     return leaf
 
 
-def philox_words_cuda(n: int, seed: int, device) -> Words:
-    """The kernel's raw words for elements 0..n-1, read back from the card
+def philox_stream_cuda(m: int, seed: int, device) -> Tuple[torch.Tensor, ...]:
+    """The kernel's four words of counters 0..m-1, read back from the card
     (a check of the plain version, not a step of the pruning path)."""
     device = torch.device(device)
     if device.type != "cuda":
-        raise ValueError("philox_words_cuda runs on a CUDA device")
-    out = torch.empty(2 * n, dtype=torch.int32, device=device)
+        raise ValueError("philox_stream_cuda runs on a CUDA device")
+    out = torch.empty(4 * m, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         rc = _lib().ecoflap_philox_words(
-            ctypes.c_void_p(out.data_ptr()), ctypes.c_uint64(n),
+            ctypes.c_void_p(out.data_ptr()), ctypes.c_uint64(m),
             ctypes.c_uint64(int(seed)), ctypes.c_void_p(_stream(device)))
     if rc != 0:
         raise RuntimeError(f"philox words kernel launch failed: cudaError_t {rc}")
     words = out.to(torch.int64) & _MASK32
-    return words[0::2], words[1::2]
+    return tuple(words[k::4] for k in range(4))

@@ -256,7 +256,18 @@ def test_cli_prunes_tiny_llama_on_the_cpu(tmp_path):
     sd = read_flat_yaml(res["sparsity_dict"])
     assert len(sd) == 14 and "model.layers.1.mlp.down_proj.weight" in sd
     assert max(sd.values()) <= 0.7 + 1e-9
-    assert abs(res["prunable_sparsity"] - 0.6) < 0.02
+    # the allocator spends the 0.6 budget exactly, by parameter count; Wanda
+    # then prunes floor(cols * ratio) weights of each row (the reference's
+    # rounding), which at these 32- and 64-wide rows alone moves the pruned
+    # share by up to 1/32, in a direction the noise draw decides. So the
+    # realized sparsity is checked against that exact count
+    shapes = {n: p.shape for n, p in tllama.build_model(
+        tllama.tiny_config(), device="cpu", dtype=torch.float32, seed=3).state_dict().items()}
+    sizes = {n: shapes[n] for n in sd}
+    numel = sum(r * c for r, c in sizes.values())
+    assert abs(sum(sd[n] * r * c for n, (r, c) in sizes.items()) / numel - 0.6) < 1e-6
+    pruned = sum(r * int(np.float32(sd[n]) * np.float32(c)) for n, (r, c) in sizes.items())
+    assert abs(res["prunable_sparsity"] - pruned / numel) <= 5e-5  # printed to 4 places
     assert len(res["leaf_scores"]) == 14
     assert set(res["phase_times"]) == {"coarse_s", "fine_model.layers_s"}
     assert res["peak_gib"] is None

@@ -42,14 +42,14 @@ def test_words_to_normal_matches_the_tpu_kernel_transform():
     throughout except log and cos, which are evaluated in float64 and
     rounded once to float32 (correctly rounded, in practice).
 
-    numpy's own float32 log and cos are SIMD code whose argument reduction
-    assumes round-to-nearest: on a thread whose floating-point rounding mode
-    is directed, they drift by up to 4.4e-5 on some 7% of these inputs,
-    where torch's stay within 3.3e-6 and the float64 ones within 3.5e-6 of
-    their round-to-nearest results. A reference built on numpy's float32
-    functions therefore failed whenever the test process ran with another
-    rounding mode. This one agrees with the port within 1e-6 when both run
-    in the same mode, and within 3.5e-6 when only one of them does."""
+    The port's transform rounds at the same points and also takes log and
+    cos in float64, so the two agree to the bit in practice; the tolerance
+    is a few float32 ulp of |z| <= 5.7. Its former float32 version went
+    through the CPU's float32 vector math and, in some runs of the whole
+    suite under six pytest-xdist workers, drifted from this reference by up
+    to 4.3e-5 on 5% of these inputs, a relative error of up to 5e-5 that no
+    rounding mode, denormal mode, vector-math accuracy mode or thread layout
+    reproduced alone."""
     rng = np.random.default_rng(1)
     b1 = rng.integers(0, 2 ** 32, size=50_000, dtype=np.uint64).astype(np.uint32)
     b2 = rng.integers(0, 2 ** 32, size=50_000, dtype=np.uint64).astype(np.uint32)
@@ -62,8 +62,92 @@ def test_words_to_normal_matches_the_tpu_kernel_transform():
     want = (np.sqrt(np.float32(-2.0) * log_u1) * cos_arg).astype(np.float32)
     got = P.words_to_normal(torch.from_numpy(b1.astype(np.int64)),
                             torch.from_numpy(b2.astype(np.int64))).numpy()
-    # float32 log/cos against correctly rounded ones: a few ulp of |z| <= 5.7
+    # the same roundings on both sides: at most a few ulp of |z| <= 5.7
     np.testing.assert_allclose(got, want, rtol=0, atol=4e-6)
+
+
+def test_sin_branch_matches_correctly_rounded_log_and_sin():
+    """The sin branch of the same transform, against the same float64
+    construction as the cos branch's reference above."""
+    rng = np.random.default_rng(2)
+    b1 = rng.integers(0, 2 ** 32, size=50_000, dtype=np.uint64).astype(np.uint32)
+    b2 = rng.integers(0, 2 ** 32, size=50_000, dtype=np.uint64).astype(np.uint32)
+    b1[:2] = [0, 0xFFFFFFFF]
+    u1 = (b1 >> 8).astype(np.int32).astype(np.float32) * np.float32(1.0 / (1 << 24))
+    u2 = (b2 >> 8).astype(np.int32).astype(np.float32) * np.float32(1.0 / (1 << 24))
+    u1 = np.maximum(u1, np.float32(1e-7))
+    radius = np.sqrt(np.float32(-2.0) * np.log(u1.astype(np.float64)).astype(np.float32))
+    sin_arg = np.sin((np.float32(2.0 * np.pi) * u2).astype(np.float64)).astype(np.float32)
+    want = (radius * sin_arg).astype(np.float32)
+    cos_z, sin_z = P.box_muller(torch.from_numpy(b1.astype(np.int64)),
+                                torch.from_numpy(b2.astype(np.int64)))
+    np.testing.assert_allclose(sin_z.numpy(), want, rtol=0, atol=4e-6)
+    assert torch.equal(cos_z, P.words_to_normal(torch.from_numpy(b1.astype(np.int64)),
+                                                torch.from_numpy(b2.astype(np.int64))))
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 7, 1000, 40_001])
+def test_elements_take_both_branches_of_two_word_pairs(n):
+    """Elements 4j, 4j + 1 are the cos and sin branches of words (0, 1) of
+    counter (lo(j), hi(j), 0, 0); elements 4j + 2, 4j + 3 those of its words
+    (2, 3): the kernel's stream."""
+    seed = 0x0123456789ABCDEF
+    z = P.normals_ref(n, seed, "cpu")
+    assert z.shape == (n,) and z.dtype == torch.float32
+    for i in sorted({0, 1, 2, 3, n // 2, n - 2, n - 1} & set(range(n))):
+        w = P.philox4x32_10(_u32(i // 4, 0, 0, 0), (seed & 0xFFFFFFFF, seed >> 32))
+        pair = (w[0], w[1]) if i % 4 < 2 else (w[2], w[3])
+        assert torch.equal(z[i:i + 1], P.box_muller(*pair)[i % 2]), i
+    assert P.ELEMENTS_PER_COUNTER == 4
+
+
+@pytest.mark.parametrize("n", [208, 209, 210, 211])
+def test_noise_depends_on_the_flat_index_only(n):
+    """The same flat tensor gives the same z under any reshape, whatever
+    n % 4 is (the last counter is then only partly used)."""
+    flat = P.perturb_ref(torch.zeros(n), 21, 1.0)
+    assert torch.equal(flat, P.normals_ref(n, 21, "cpu"))
+    shapes = [(n,), (1, n), (n, 1)] + [(a, n // a) for a in range(2, n) if n % a == 0]
+    for shape in shapes:
+        got = P.perturb_ref(torch.zeros(shape), 21, 1.0)
+        assert torch.equal(got.reshape(-1), flat), shape
+
+
+def test_the_two_branches_of_a_pair_are_uncorrelated():
+    """Over 1,048,576 draws: the cos and sin draws of each word pair, and
+    neighbouring elements, correlate by less than 0.01 (the sampling spread
+    of a correlation over 262,144 pairs is 0.002)."""
+    z = P.normals_ref(1 << 20, 0xD1B54A32D192ED03, "cpu").double()
+    q = z.view(-1, 4)
+
+    def rho(x, y):
+        x, y = x - x.mean(), y - y.mean()
+        return ((x * y).sum() / ((x * x).sum() * (y * y).sum()).sqrt()).item()
+
+    for x, y in ((q[:, 0], q[:, 1]), (q[:, 2], q[:, 3]), (z[:-1], z[1:])):
+        assert abs(rho(x, y)) < 0.01
+    assert abs(z.mean().item()) < 0.01 and abs(z.std().item() - 1.0) < 0.01
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_a_view_at_an_odd_offset_perturbs_as_a_contiguous_copy(dtype):
+    """leaf[1] of a (3, 301, 577) leaf starts 173,677 elements in (odd, off
+    any 16-byte boundary); its noise is that of a fresh contiguous copy, and
+    the out-of-place form's output lies at the view's 16-byte phase."""
+    leaf = (torch.randn(3, 301, 577, generator=torch.Generator().manual_seed(4))
+            * 0.02).to(dtype)
+    view = leaf[1]
+    assert view.storage_offset() % 2 == 1 and view.data_ptr() % 16 != 0
+    copy = view.clone()
+    keep = leaf.clone()
+    P.perturb_block_inplace(leaf, 1, 13, 1e-3)
+    P.perturb_inplace(copy, 13, 1e-3)
+    assert torch.equal(leaf[1], copy)
+    assert torch.equal(leaf[0], keep[0]) and torch.equal(leaf[2], keep[2])
+    assert torch.equal(P.perturb(keep[1], 13, 1e-3), copy)
+    out = P._empty_in_phase(keep[1])
+    assert out.shape == view.shape and out.dtype == dtype and out.is_contiguous()
+    assert out.data_ptr() % 16 == keep[1].data_ptr() % 16
 
 
 def test_plain_version_matches_the_jax_kernel_in_interpret_mode():
