@@ -9,7 +9,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
   1. device line, toolkit versions, and the build of every CUDA source;
   2. each kernel against its plain PyTorch version on the card: the
      perturbation kernels (in place and out of place) at the BLIP-2
-     FlanT5-XL weight shapes plus a ragged one, in bf16 and f32; the causal
+     FlanT5-XL weight shapes plus a ragged one, the in-place one also at
+     the LLaMA-7B shapes of phase 5, in bf16 and f32; the causal
      flash-attention forward (with and without its LSE output) and backward
      kernels at the LLaMA calibration shape, a short one and one whose last
      128-row tile is half full (S % 128 == 64), their causality, strided
@@ -20,11 +21,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
   4. the BLIP-2 path: ``ecoflap_tpu_torch.cli.prune.main`` prunes BLIP-2
      FlanT5-XL at full width and depth (random bf16 weights, seed 42) with
      the ECoFLaP zeroth-order + Wanda flags of scripts/blip2/ecoflap_zeroth.py
-     at the zeroth_pb shape, counting kernel launches;
+     at the zeroth_pb shape, scoring by the lane ensemble (the default: the
+     out-of-place perturbation kernel), counting kernel launches;
   5. the LLaMA path: the same entry point prunes LLaMA-7B at full width and
      depth with the flags of scripts/llama/ecoflap_zero.sh, except one
-     coarse microbatch of 8 windows (the reference scores 32), counting
-     kernel launches;
+     coarse microbatch of 8 windows (the reference scores 32), scoring by
+     the serial in-place cycle (LLaMA's default: the in-place perturbation
+     kernel), counting kernel launches;
   6. the LLaMA first-order path: LLaMA-7B at full width and depth with the
      same flags and ``--score_method GradOnly_sum`` (the reference
      LLaMA/main.py without --use_mezo), all 32 coarse windows (4
@@ -33,11 +36,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
   7. the BLIP-2 first-order path: BLIP-2 FlanT5-XL with the flags of
      scripts/blip2/ecoflap_first.py (GradMagAbs_sum), cut to 32 coarse
      samples (the reference scores 128), counting kernel launches (none);
-  8. the port on the card against the port on the CPU: tiny BLIP-2 in f32,
+  8. the BLIP-2 SparseGPT path: BLIP-2 FlanT5-XL with the flags of
+     scripts/blip2/ecoflap_sparsegpt_zeroth.py and ``--sparsity_dict`` of
+     phase 4's YAML (no coarse stage, no kernel launch), each block's zero
+     share against its ratio, the fine stage's wall split per stack; then
+     ViT-g block 0 at the same init and calibration, pruned by SparseGPT on
+     the card and on the CPU from one float32 Hessian: the Hessians'
+     conditioning and the two sides' reconstruction errors;
+  9. the port on the card against the port on the CPU: tiny BLIP-2 in f32,
      and a small LLaMA in bf16 on the card (flash kernels) against f32 on
      the CPU (plain attention): logits, losses and first-order sums, the
-     sums twice on the card (the same bits: they feed the allocator).
-Kernel launch counts are set to 0 just before each of phases 4 to 7 and
+     sums twice on the card (the same bits: they feed the allocator); on
+     the card in f32, the lane ensemble against the serial path with the
+     same seeds on a small BLIP-2 and the small LLaMA, and a ``shared``
+     noise run; tiny BLIP-2 SparseGPT on the card against the CPU.
+Kernel launch counts are set to 0 just before each of phases 4 to 8 and
 read just after it. The line before the last holds the card's
 ``name, power.limit``; the last is ``{"ok": true, "device": {...}}``.
 """
@@ -72,9 +85,13 @@ RAGGED = (301, 577)
 # a (3, 301, 577) leaf: leaf[1] starts 173,677 elements in, off any 16-byte
 # boundary and at an odd element (kernel: scalar head, odd-phase vectors)
 RAGGED_LEAF = (3, *RAGGED)
-OUT_OF_PLACE_SHAPES = [(4224, 1408), (5120, 2048), RAGGED]
+# the out-of-place kernel runs every lane of the BLIP-2 ensemble
+OUT_OF_PLACE_SHAPES = XL_SHAPES + [RAGGED]
 # LLaMA-7B target shapes per block: q, k, v, o; gate, up; down
 LLAMA_SHAPES = [(4096, 4096)] * 4 + [(11008, 4096)] * 2 + [(4096, 11008)]
+# the in-place kernel runs phase 5's serial cycle (LLaMA-7B) and the BLIP-2
+# serial cycle that --mezo_ensemble 0 selects
+IN_PLACE_SHAPES = XL_SHAPES + sorted(set(LLAMA_SHAPES)) + [RAGGED]
 LLAMA_LINEARS = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
                  "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj", "mlp.down_proj")
 SEED = 42
@@ -132,6 +149,45 @@ FLASH_LSE_MAX_ABS = 1e-4
 # attends to the wrong keys or drops sm_scale moves the attention weights'
 # sums by O(1).
 LLAMA_GRAD_SUMS_RTOL = 1e-2
+# lane ensemble vs serial cycle on the card, float32, the same z: a score is
+# |L+ - L-| / 2eps summed over 2 microbatches. The losses (~10 at a 32k
+# vocabulary, ~6 at 512) come from GEMMs that cuBLAS may block differently
+# at K x B rows than at B rows, and the serial cycle restores each weight to
+# one rounding: a few float32 ulps (~1e-6) per loss, 1e-5 at the most, over
+# 2 eps = 0.1 gives 1e-4 per microbatch. 1e-3 beyond rtol 1e-3 leaves 5x; a
+# lane that perturbs another weight, or with another z, moves a score by
+# O(1).
+ENSEMBLE_EPS = 0.05
+ENSEMBLE_RTOL = 1e-3
+ENSEMBLE_ATOL = 1e-3
+# BLIP-2 XL SparseGPT: a block's linears share its ratio, and the sweep
+# prunes floor(n sp) entries of each 128-column block plus its ties, so a
+# block's zero share sits within a few 1e-4 of its ratio; a block pruned to
+# another ratio, or a lane zeroed whole, misses 0.01 by far.
+SPARSEGPT_BLOCK_TOL = 0.01
+# tiny BLIP-2 SparseGPT, card vs CPU, float32 (TF32 off): the Cholesky
+# factors and products come from cuSOLVER/cuBLAS on one side and LAPACK on
+# the other; on these Hessians (eigenvalue ratios above 2e-5) the port
+# differs from the JAX package on the CPU by at most 1.5e-5 absolute
+# (tests/test_torch_sparsegpt_pipeline.py), so the relative L2 of the pruned
+# weights sits near 1e-5: gate 1e-3. A mask entry that flips moves its
+# weight by O(1e-1); at most one in a thousand may sit on a near-tie.
+SPARSEGPT_REL_L2 = 1e-3
+SPARSEGPT_MASK_SHARE = 1e-3
+# ViT-g block 0 at phase 8's init, SparseGPT card vs CPU from one float32 H:
+# the Hessians' eigenvalue ratios go down to ~6e-7 (qkv: a LayerNorm with
+# zero bias leaves its outputs' sum near 0, only bf16 rounding off it) and
+# the sweep factors H undamped, so Hinv is large along the near-null
+# directions and the two libraries' pruned weights part there (on the
+# H100: 17% of qkv's mask, relative L2 0.68; PERF.md). The objective
+# tr(D H D^T) barely sees those directions: the two sides agreed to 1.0e-2
+# relative on qkv, 9e-4 on fc1 and below 1e-5 on proj and fc2. Gate 3e-2,
+# 3x that; the mask without the sweep's updates sits 2-3.5x above the
+# sweep's objective, so a lost or misdirected update fails one gate or the
+# other.
+SPARSEGPT_XL_RECON_RTOL = 3e-2
+SPARSEGPT_STACKS = ("visual_encoder.blocks", "t5_model.encoder.block",
+                    "t5_model.decoder.block")
 
 
 def log(*a):
@@ -481,14 +537,21 @@ def time_perturb_host(P, torch, perturb_seed):
 
 
 def perturb_launch_weights():
-    """{(out, in): launches} of the perturbation kernel over the two
-    zeroth-order paths: 3 per target and coarse microbatch."""
-    weights = {}
+    """{kernel: {(out, in): launches}} on the zeroth-order paths: the lane
+    ensemble of phase 4 launches the out-of-place kernel twice per target
+    and coarse microbatch, the serial cycle of phase 5 the in-place kernel
+    three times."""
+    inplace, out_of_place = {}, {}
     for s in xl_target_shapes():
-        weights[s] = weights.get(s, 0) + 3 * (NUM_DATA_FIRST_STAGE // BATCH_SIZE)
+        out_of_place[s] = out_of_place.get(s, 0) + 2 * (NUM_DATA_FIRST_STAGE // BATCH_SIZE)
     for s in LLAMA_SHAPES * LLAMA_LAYERS:
-        weights[s] = weights.get(s, 0) + 3 * (LLAMA_FIRST_STAGE // BATCH_SIZE)
-    return weights
+        inplace[s] = inplace.get(s, 0) + 3 * (LLAMA_FIRST_STAGE // BATCH_SIZE)
+    return {"perturb_inplace": inplace, "perturb": out_of_place}
+
+
+def weighted(timings, weights, key):
+    """Launch-weighted mean of one timing field."""
+    return sum(timings[s][key] * w for s, w in weights.items()) / sum(weights.values())
 
 
 def time_perturb_out_of_place(P, torch, shape):
@@ -709,6 +772,229 @@ def small_llama_grad_sums(torch, llama, A, cfg, cpu_model, ids):
     return grad_rel
 
 
+def small_blip2_setup(torch):
+    """A small BLIP-2 (ViT-B/16 + flan-t5-base, random float32 weights, seed
+    3) on the card with 8 synthetic samples in 2 microbatches, and the
+    targets of the first and last block of each stack (44)."""
+    from ecoflap_tpu_torch.data import calibration as cal
+    from ecoflap_tpu_torch.models import blip2
+
+    cfg = blip2.blip2_small()
+    model = blip2.build_model(cfg, device="cuda", dtype=torch.float32, seed=3)
+    batch = cal.build_vl_calibration_batch(
+        cal.synthetic_vl_samples(8, cfg.vit.img_size, 0),
+        cal.HashTokenizer(vocab_size=cfg.t5.vocab_size), cal.CalibrationSpec(8, 4), 0)
+    batch = {k: v.cuda() for k, v in batch.items()}
+    ad = blip2.make_adapter(model)
+    targets = [t for t in ad.targets() if t.block_index in (0, t.stack.num_blocks - 1)]
+    return ad, batch, targets
+
+
+def ensemble_gap(P, ad, batch, targets):
+    """Scores of ``targets`` by the lane ensemble and by the serial cycle
+    with one seed, so one z per (target, microbatch); each path's kernel
+    launches checked. Returns the worst difference beyond rtol."""
+    from ecoflap_tpu_torch.pruning.mezo import mezo_leaf_scores
+
+    scores = {}
+    for ens in (True, False):
+        before = P.perturb.launches, P.perturb_inplace.launches
+        scores[ens] = mezo_leaf_scores(
+            ad.loss_fn, ad.model, batch, 2, targets, eps=ENSEMBLE_EPS, seed=5,
+            loss_plans=ad.build_mezo_plans(ad.model, batch), ensemble=ens)
+        made = P.perturb.launches - before[0], P.perturb_inplace.launches - before[1]
+        assert made == ((2 * 2 * len(targets), 0) if ens else (0, 3 * 2 * len(targets))), made
+    ens, ser = scores[True], scores[False]
+    assert all(math.isfinite(v) and v >= 0 for v in ens.values())
+    err = max(abs(ens[k] - ser[k]) - ENSEMBLE_RTOL * abs(ser[k]) for k in ser)
+    assert err <= ENSEMBLE_ATOL, f"lane ensemble vs serial: {err} beyond rtol {ENSEMBLE_RTOL}"
+    return err
+
+
+def ensemble_vs_serial_checks(torch, P, small_blip2):
+    """The lane ensemble against the serial cycle on the card in float32:
+    the small BLIP-2's 44 targets, and every target of the small LLaMA of
+    ``small_llama_check`` (finished lane by lane)."""
+    from ecoflap_tpu_torch.data import calibration as cal
+    from ecoflap_tpu_torch.models import llama
+
+    ad, batch, targets = small_blip2
+    out = {"small BLIP-2": (ensemble_gap(P, ad, batch, targets), len(targets))}
+    cfg = llama.LlamaConfig(vocab_size=512, d_model=256, num_layers=2, num_heads=2,
+                            num_kv_heads=2, d_ff=688, max_seq_len=512)
+    model = llama.build_model(cfg, device="cuda", dtype=torch.float32, seed=3)
+    ids = cal.build_lm_calibration_batch(
+        cal.synthetic_token_stream(4, 512, cfg.vocab_size, 0), 4, 512, 0)["input_ids"]
+    lad = llama.make_adapter(model)
+    out["small LLaMA"] = (ensemble_gap(P, lad, {"input_ids": ids.cuda()},
+                                       lad.targets()), len(lad.targets()))
+    return out
+
+
+def shared_mode_check(P, small_blip2):
+    """``noise_mode="shared"`` by the lane ensemble on the small BLIP-2: one
+    z per target for both microbatches, so one +eps and one -eps launch per
+    target; finite, non-negative, distinct scores."""
+    from ecoflap_tpu_torch.pruning.mezo import mezo_leaf_scores
+
+    ad, batch, targets = small_blip2
+    before = P.perturb.launches
+    scores = mezo_leaf_scores(ad.loss_fn, ad.model, batch, 2, targets,
+                              eps=ENSEMBLE_EPS, seed=5, noise_mode="shared",
+                              loss_plans=ad.build_mezo_plans(ad.model, batch))
+    assert P.perturb.launches - before == 2 * len(targets)
+    vals = list(scores.values())
+    assert all(math.isfinite(v) and v >= 0 for v in vals), "shared-mode scores"
+    assert len(set(vals)) == len(vals), "shared-mode scores not distinct"
+    return min(vals), max(vals), len(vals)
+
+
+def small_sparsegpt_check(torch):
+    """Tiny BLIP-2 SparseGPT from one random dict on the card and on the
+    CPU, float32. The tiny init leaves the ViT's Hessians singular (zero
+    LayerNorm biases, uniform attention), where any two libraries' float32
+    Cholesky factors differ by O(1); its LayerNorm biases, v bias and qkv
+    weights are drawn wider, as tests/test_torch_sparsegpt_pipeline.py does,
+    and the labels carry 16 tokens. Returns (mask mismatch share, relative
+    L2 of the pruned weights)."""
+    from ecoflap_tpu_torch.models import blip2
+    from ecoflap_tpu_torch.pruning.loader import load_pruner
+
+    cfg = blip2.tiny_config()
+    cpu_model = blip2.build_model(cfg, device="cpu", dtype=torch.float32, seed=3)
+    g = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for blk in cpu_model.visual_encoder.blocks:
+            for t, std in ((blk.norm1.bias, 0.5), (blk.norm2.bias, 0.5),
+                           (blk.attn.qkv.weight, 0.35), (blk.attn.v_bias, 0.5)):
+                t.copy_(torch.randn(t.shape, generator=g) * std)
+    n, img, vocab = 8, cfg.vit.img_size, cfg.t5.vocab_size
+    batch = {"image": torch.randn(n, img, img, 3, generator=g),
+             "text_input_ids": torch.randint(2, vocab, (n, 6), generator=g),
+             "text_input_mask": torch.ones(n, 6, dtype=torch.long),
+             "labels": torch.randint(2, vocab, (n, 16), generator=g)}
+    names = [t.name for t in blip2.make_adapter(cpu_model).targets()]
+    picks = torch.randint(0, 3, (len(names),), generator=g).tolist()
+    sd = {k: (0.3, 0.5, 0.6)[i] for k, i in zip(names, picks)}
+    specs = {"visual_encoder.blocks": f"{cfg.vit.depth}-0.5-1.0-1.0",
+             "t5_model.encoder.block": f"{cfg.t5.num_layers}-0.5-1.0-1.0",
+             "t5_model.decoder.block": f"{cfg.t5.num_decoder_layers}-0.5-1.0-1.0"}
+    pruned = {}
+    for dev in ("cuda", "cpu"):
+        model = copy.deepcopy(cpu_model).to(dev)
+        ad = blip2.make_adapter(model)
+        load_pruner("blipt5_sparsegpt_pruner", ad, {k: v.to(dev) for k, v in batch.items()},
+                    2, dict(stack_specs=specs, sparsity_dict=sd, verbose=False)).prune()
+        pruned[dev] = torch.cat([t.weight(model).detach().cpu().reshape(-1)
+                                 for t in ad.targets()])
+    card, cpu = pruned["cuda"], pruned["cpu"]
+    assert torch.isfinite(card).all(), "tiny SparseGPT on the card: non-finite weights"
+    mask_share = ((card == 0) != (cpu == 0)).float().mean().item()
+    rel_l2 = ((card - cpu).norm() / cpu.norm()).item()
+    assert mask_share <= SPARSEGPT_MASK_SHARE, f"SparseGPT masks card vs CPU: {mask_share}"
+    assert rel_l2 <= SPARSEGPT_REL_L2, f"SparseGPT weights card vs CPU: {rel_l2}"
+    return mask_share, rel_l2
+
+
+def vit_block_sparsegpt(torch, ratio):
+    """Phase 8's regime at full width: ViT-g block 0 as phase 8 builds it
+    (the CLI's seed, bf16 weights, its 128 calibration images in
+    microbatches of 8), its four Hessians collected on the card, and each
+    linear pruned by SparseGPT from the same float32 H and W on the card
+    and on the CPU. Per linear: the Hessian's smallest and largest
+    eigenvalue (float64, on the card), whether the undamped float32
+    Cholesky fails on each side, the mask mismatch share, the pruned
+    weights' relative L2, and on each side the relative reconstruction
+    error tr(D H D^T) / tr(W H W^T), D = W - W_pruned: the objective the
+    sweep minimises, which H's near-null directions barely move, beside
+    that of the card's mask applied without the sweep's updates. Gates:
+    the two sides' objectives within SPARSEGPT_XL_RECON_RTOL, and the sweep
+    below the mask alone on both."""
+    from ecoflap_tpu_torch.data import calibration as cal
+    from ecoflap_tpu_torch.models import blip2, eva_vit
+    from ecoflap_tpu_torch.pruning.sparsegpt import sparsegpt_prune_weight
+
+    cfg = blip2.blip2_flant5xl()
+    with torch.device("meta"):
+        vit = eva_vit.EvaViT(cfg.vit).to(torch.bfloat16)
+    vit = vit.to_empty(device="cuda").requires_grad_(False)
+    # Blip2T5.init_ draws the visual encoder first from the CLI's generator
+    vit.init_(torch.Generator(device="cuda").manual_seed(SEED))
+    spec = cal.CalibrationSpec(NUM_SAMPLES, BATCH_SIZE)
+    batch = cal.build_vl_calibration_batch(
+        cal.synthetic_vl_samples(NUM_SAMPLES, cfg.vit.img_size, SEED),
+        cal.HashTokenizer(vocab_size=cfg.t5.vocab_size), spec, SEED)
+    images = batch["image"].cuda()
+    block = vit.blocks[0]
+    stats = {}
+    with torch.no_grad():
+        for c in range(0, NUM_SAMPLES, BATCH_SIZE):
+            _, part = block(vit.embed(images[c:c + BATCH_SIZE]), None, collect="hessian")
+            stats = {k: stats[k] + v if k in stats else v for k, v in part.items()}
+    out = {}
+    for local in eva_vit.LINEAR_NAMES:
+        h = (2.0 / NUM_SAMPLES) * stats[local].to(torch.float32)
+        w = block.get_submodule(local).weight.to(torch.float32)
+        ev = torch.linalg.eigvalsh(h.double())
+        sym = (h + h.mT) / 2
+        fails = tuple(int(torch.linalg.cholesky_ex(m).info) != 0 for m in (sym, sym.cpu()))
+        card = sparsegpt_prune_weight(w, h, ratio)
+        cpu = sparsegpt_prune_weight(w.cpu(), h.cpu(), ratio).cuda()
+        assert torch.isfinite(card).all() and torch.isfinite(cpu).all(), local
+        hd, wd = h.double(), w.double()
+
+        def recon(p):
+            d = wd - p.double()
+            return ((d @ hd) * d).sum().item() / ((wd @ hd) * wd).sum().item()
+
+        r = {"eig_ratio": (ev[0] / ev[-1]).item(), "undamped_cholesky_fails": fails,
+             "mask_share": ((card == 0) != (cpu == 0)).float().mean().item(),
+             "rel_l2": ((card - cpu).norm() / cpu.norm()).item(),
+             "recon_card": recon(card), "recon_cpu": recon(cpu),
+             "recon_mask_only": recon(w * (card != 0))}
+        assert abs(r["recon_card"] / r["recon_cpu"] - 1) <= SPARSEGPT_XL_RECON_RTOL, (local, r)
+        assert max(r["recon_card"], r["recon_cpu"]) < r["recon_mask_only"], (local, r)
+        out[local] = r
+    del vit, stats
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_sparsegpt_prune(torch, res, sd):
+    """Phase 8's gates on the pruned BLIP-2: every prunable weight finite,
+    each block's zero share (over its linears, which share its ratio) within
+    SPARSEGPT_BLOCK_TOL of that ratio, global sparsity 0.5 +- 0.01. Returns
+    the worst block gap."""
+    from ecoflap_tpu_torch.models import blip2
+
+    ad = blip2.make_adapter(res["model"])
+    worst = 0.0
+    for stack in ad.stacks:
+        for i, block in enumerate(stack.blocks(ad.model)):
+            zeros = total = 0
+            ratios = {sd[stack.weight_key(i, ln)] for ln in stack.linear_names}
+            assert len(ratios) == 1, ratios
+            for local in stack.linear_names:
+                w = block.get_submodule(local).weight
+                assert torch.isfinite(w).all(), f"{stack.weight_key(i, local)}: non-finite"
+                zeros += int((w == 0).sum())
+                total += w.numel()
+            gap = abs(zeros / total - ratios.pop())
+            assert gap <= SPARSEGPT_BLOCK_TOL, f"{stack.name}.{i}: zero share off by {gap}"
+            worst = max(worst, gap)
+    assert abs(res["prunable_sparsity"] - 0.5) <= 0.01, res["prunable_sparsity"]
+    return worst
+
+
+def sparsegpt_split(phase_times):
+    """{stack: {part: s}} of the SparseGPT fine stage's wall: the whole
+    (``s``), the statistics passes, the pruning (with ``prepare_hinv`` and
+    the column sweep inside it) and the re-forwards."""
+    parts = ("s", "collect_s", "prune_s", "prepare_hinv_s", "sweep_s", "reforward_s")
+    return {stack: {p: phase_times[f"fine_{stack}_{p}"] for p in parts}
+            for stack in SPARSEGPT_STACKS}
+
+
 def reset_counts(kernels):
     for fn in kernels.values():
         fn.launches = 0
@@ -798,10 +1084,11 @@ def main(argv=None) -> int:
     # -- 2. kernel vs plain ---------------------------------------------------
     worst_err, worst_ulp = 0.0, 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        for shape in XL_SHAPES + [RAGGED]:
+        for shape in IN_PLACE_SHAPES:
             err, ulps = check_perturb(P, torch, shape, dtype)
             worst_err, worst_ulp = max(worst_err, err), max(worst_ulp, ulps)
-    log(f"perturb_inplace vs plain: all {2 * (len(XL_SHAPES) + 1)} cases pass; "
+    log(f"perturb_inplace vs plain: all {2 * len(IN_PLACE_SHAPES)} cases pass "
+        f"(phase 5's LLaMA-7B shapes among them); "
         f"worst |w_kernel - w_plain| {worst_err:.3e} (scale 1e-3), "
         f"worst z {worst_ulp:.0f} ulp, Philox words (four per counter) bit-identical")
     view_err = max(check_perturb_view(P, torch, dtype)
@@ -854,14 +1141,14 @@ def main(argv=None) -> int:
     weights = perturb_launch_weights()
 
     def avg(key):
-        return sum(timings[s][key] * w for s, w in weights.items()) / sum(weights.values())
+        return weighted(timings, weights["perturb_inplace"], key)
 
     p_bound, p_by = bound({"bytes_bound_ms": avg("bytes_bound_ms"),
                            "ops_bound_ms": avg("ops_bound_ms")})
     old_ops_ms = avg("ops_bound_ms") * PERTURB_OPS_ONE_ELEMENT_PER_CALL / PERTURB_OPS_PER_ELEMENT
-    log(f"perturb_inplace launch-weighted over both zeroth-order paths "
-        f"({sum(weights.values())} launches): kernel {avg('ms'):.4f} ms (through the "
-        f"wrapper {avg('wrapper_ms'):.4f} ms) | bound "
+    log(f"perturb_inplace launch-weighted over phase 5's serial cycle "
+        f"({sum(weights['perturb_inplace'].values())} launches): kernel {avg('ms'):.4f} ms "
+        f"(through the wrapper {avg('wrapper_ms'):.4f} ms) | bound "
         f"{p_bound:.4f} ms ({p_by}, {PERTURB_OPS_PER_ELEMENT} operations an element) | "
         f"share of bound {p_bound / avg('ms'):.3f} | the former count "
         f"({PERTURB_OPS_ONE_ELEMENT_PER_CALL} an element) would bound it at "
@@ -873,12 +1160,22 @@ def main(argv=None) -> int:
         "queue): " + ", ".join(f"{k} {v:.2f} us" for k, v in host.items())
         + f" | device time at {XL_SHAPES[0][0]}x{XL_SHAPES[0][1]} "
         f"{timings[XL_SHAPES[0]]['ms'] * 1e3:.2f} us")
-    oop_t = [time_perturb_out_of_place(P, torch, s) for s in OUT_OF_PLACE_SHAPES[:2]]
-    for t in oop_t:
+    oop_t = {s: time_perturb_out_of_place(P, torch, s) for s in XL_SHAPES}
+    for t in oop_t.values():
         b, by = bound(t)
         log(f"perturb bf16 {t['shape'][0]}x{t['shape'][1]}: kernel {t['ms']:.4f} ms "
             f"(through the wrapper, with its output's allocation, {t['wrapper_ms']:.4f} "
             f"ms) | bound {b:.4f} ms ({by}) | plain {t['plain_ms']:.3f} ms")
+
+    def oop_avg(key):
+        return weighted(oop_t, weights["perturb"], key)
+
+    o_bound, o_by = bound({k: oop_avg(k) for k in ("bytes_bound_ms", "ops_bound_ms")})
+    log(f"perturb launch-weighted over phase 4's lane ensemble "
+        f"({sum(weights['perturb'].values())} launches): kernel {oop_avg('ms'):.4f} ms "
+        f"(through the wrapper {oop_avg('wrapper_ms'):.4f} ms) | bound {o_bound:.4f} ms "
+        f"({o_by}) | share of bound {o_bound / oop_avg('ms'):.3f} | plain "
+        f"{oop_avg('plain_ms'):.3f} ms")
     flash_t = time_flash(A, torch, FLASH_SHAPES[0])
     fb, fby = bound(flash_t)
     log(f"flash_attention {tuple(flash_t['shape'])}: kernel {flash_t['ms']:.4f} ms | "
@@ -919,12 +1216,16 @@ def main(argv=None) -> int:
     log_path("BLIP-2", res, wall, blip_counts)
     shapes = xl_target_shapes()
     n_mb = NUM_DATA_FIRST_STAGE // BATCH_SIZE
-    assert blip_counts["perturb_inplace"] == 3 * len(shapes) * n_mb == 3 * 588 * n_mb, \
-        blip_counts
+    # the lane ensemble: per target and coarse microbatch one +eps and one
+    # -eps copy by the out-of-place kernel, never the in-place one
+    assert blip_counts["perturb"] == 2 * len(shapes) * n_mb == 2 * 588 * n_mb, blip_counts
+    assert blip_counts["perturb_inplace"] == 0, blip_counts
     vals, sd = check_scores_and_dict(read_flat_yaml, res, 588, 0.6, 0.5)
-    log(f"BLIP-2 path checks pass: {blip_counts['perturb_inplace']} perturb launches, "
-        f"588 finite scores in [{min(vals):.4g}, {max(vals):.4g}], ratios <= "
-        f"{max(sd.values()):.4f}, global sparsity {res['prunable_sparsity']}")
+    zeroth_dict = res["sparsity_dict"]
+    log(f"BLIP-2 path checks pass: {blip_counts['perturb']} out-of-place perturb "
+        f"launches, no in-place one, 588 finite scores in [{min(vals):.4g}, "
+        f"{max(vals):.4g}], ratios <= {max(sd.values()):.4f}, global sparsity "
+        f"{res['prunable_sparsity']}")
     del res
 
     # -- 5. LLaMA path -------------------------------------------------------------
@@ -949,6 +1250,7 @@ def main(argv=None) -> int:
                   + (LLAMA_LAYERS - 1) + 2 * LLAMA_LAYERS * (NUM_SAMPLES // BATCH_SIZE))
     assert llama_counts["flash_attention"] == want_flash, (llama_counts, want_flash)
     assert llama_counts["perturb_inplace"] == 3 * n_targets * llama_mb, llama_counts
+    assert llama_counts["perturb"] == 0, llama_counts
     vals, sd = check_scores_and_dict(read_flat_yaml, res, n_targets, 0.7, 0.6)
     assert sd.keys() == {f"model.layers.{i}.{n}.weight" for i in range(LLAMA_LAYERS)
                          for n in LLAMA_LINEARS}, "LLaMA sparsity dict keys"
@@ -1000,7 +1302,44 @@ def main(argv=None) -> int:
         f"global sparsity {res['prunable_sparsity']}, peak {res['peak_gib']:.2f} GiB")
     del res
 
-    # -- 8. card vs CPU ------------------------------------------------------------
+    # -- 8. BLIP-2 SparseGPT path from phase 4's dict -------------------------------
+    argv = ["--model", "blip2_t5", "--model_scale", "full", "--seed", str(SEED),
+            "--pruning_method", "blipt5_sparsegpt_pruner",
+            "--vit_prune_spec", "39-0.5-1.0-1.0", "--t5_prune_spec", "24-0.5-1.0-1.0",
+            "--num_samples", str(NUM_SAMPLES), "--batch_size", str(BATCH_SIZE),
+            "--sparsity_dict", zeroth_dict, "--calib", "synthetic",
+            "--output_dir", out_dir]
+    res, wall, sgpt_counts = run_path(cli, kernels, argv)
+    log_path("BLIP-2 SparseGPT", res, wall, sgpt_counts)
+    assert not any(sgpt_counts.values()), sgpt_counts
+    block_err = check_sparsegpt_prune(torch, res, read_flat_yaml(zeroth_dict))
+    split = sparsegpt_split(res["phase_times"])
+    log(f"BLIP-2 SparseGPT path checks pass: no kernel launch, every weight finite, "
+        f"every block's zero share within {block_err:.4f} of its ratio (gate "
+        f"{SPARSEGPT_BLOCK_TOL}), global sparsity {res['prunable_sparsity']}, peak "
+        f"{res['peak_gib']:.2f} GiB | fine wall split: " + "; ".join(
+            f"{stack} {parts['s']:.2f} s = collect {parts['collect_s']:.2f} + "
+            f"prepare_hinv {parts['prepare_hinv_s']:.2f} + sweep {parts['sweep_s']:.2f}"
+            f" + other prune {parts['prune_s'] - parts['prepare_hinv_s'] - parts['sweep_s']:.2f}"
+            f" + reforward {parts['reforward_s']:.2f}"
+            for stack, parts in split.items()))
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    sd = read_flat_yaml(zeroth_dict)
+    vit_ratio = sd["visual_encoder.blocks.0.attn.qkv.weight"]
+    for local, r in vit_block_sparsegpt(torch, vit_ratio).items():
+        log(f"ViT-g block 0 {local} at phase 8's init, ratio {vit_ratio:.4f}, SparseGPT "
+            f"card vs CPU from one f32 H: H eigenvalue ratio {r['eig_ratio']:.3e}, "
+            f"undamped Cholesky fails (card, CPU) {r['undamped_cholesky_fails']}, mask "
+            f"mismatch share {r['mask_share']:.3e}, weights relative L2 {r['rel_l2']:.3e} | "
+            f"reconstruction error card {r['recon_card']:.6f}, CPU {r['recon_cpu']:.6f} "
+            f"(gate {SPARSEGPT_XL_RECON_RTOL} relative), mask alone {r['recon_mask_only']:.6f}")
+
+    # -- 9. card vs CPU, and the lane ensemble against the serial path ---------------
+    from ecoflap_tpu_torch.core.device import exact_float32_matmuls
+
+    exact_float32_matmuls()  # float32 on the card as on the CPU: TF32 off
     lerr, serr = small_reference_check(torch)
     log(f"tiny BLIP-2 card vs CPU: loss rel err {lerr:.2e}, MeZO score err beyond "
         f"rtol 1e-3 {serr:.2e}")
@@ -1010,13 +1349,25 @@ def main(argv=None) -> int:
         f"{loss_rel:.3e} (gate {LLAMA_LOSS_RTOL}), GradOnly sums rel err "
         f"{grad_rel:.3e} (gate {LLAMA_GRAD_SUMS_RTOL}), bit-identical over two "
         f"card runs")
+    small_blip2 = small_blip2_setup(torch)
+    for what, (err, n) in ensemble_vs_serial_checks(torch, P, small_blip2).items():
+        log(f"{what} on the card, f32: lane ensemble vs serial cycle, the same seeds, "
+            f"{n} targets: worst score difference beyond rtol {ENSEMBLE_RTOL} is {err:.3e} "
+            f"(gate {ENSEMBLE_ATOL})")
+    lo, hi, n = shared_mode_check(P, small_blip2)
+    del small_blip2
+    log(f"small BLIP-2 on the card, noise_mode shared, lane ensemble: {n} finite "
+        f"distinct scores in [{lo:.4g}, {hi:.4g}]")
+    mask_share, rel_l2 = small_sparsegpt_check(torch)
+    log(f"tiny BLIP-2 SparseGPT card vs CPU, f32: mask mismatch share {mask_share:.2e} "
+        f"(gate {SPARSEGPT_MASK_SHARE}), pruned weights relative L2 {rel_l2:.3e} "
+        f"(gate {SPARSEGPT_REL_L2})")
 
-    assert sum(perturb_launch_weights().values()) == (
-        blip_counts["perturb_inplace"] + llama_counts["perturb_inplace"])
-    o_bound, o_by = bound({k: sum(t[k] for t in oop_t) / len(oop_t)
-                           for k in ("bytes_bound_ms", "ops_bound_ms")})
+    for k in ("perturb_inplace", "perturb"):
+        assert sum(weights[k].values()) == blip_counts[k] + llama_counts[k], k
     paths = {"blip2_t5": blip_counts, "llama": llama_counts,
-             "llama_first_order": llama_fo_counts, "blip2_t5_first_order": blip_fo_counts}
+             "llama_first_order": llama_fo_counts, "blip2_t5_first_order": blip_fo_counts,
+             "blip2_t5_sparsegpt": sgpt_counts}
     by_path = {k: {p: c[k] for p, c in paths.items()} for k in kernels}
     launches = {k: sum(by_path[k].values()) for k in kernels}
     log(json.dumps({"kernels": [
@@ -1033,11 +1384,9 @@ def main(argv=None) -> int:
          "source": "ecoflap_tpu_torch/csrc/perturb.cu",
          "replaces": "ecoflap_tpu/ops/perturb.py:31",
          "launches": launches["perturb"], "launches_by_path": by_path["perturb"],
-         "max_abs_err": oop_err,
-         "ms": sum(t["ms"] for t in oop_t) / len(oop_t),
-         "plain_ms": sum(t["plain_ms"] for t in oop_t) / len(oop_t),
+         "max_abs_err": oop_err, "ms": oop_avg("ms"), "plain_ms": oop_avg("plain_ms"),
          "bound_ms": o_bound, "bound_by": o_by, "library_ms": None,
-         "wrapper_ms": sum(t["wrapper_ms"] for t in oop_t) / len(oop_t)},
+         "bound_share": o_bound / oop_avg("ms"), "wrapper_ms": oop_avg("wrapper_ms")},
         {"name": "flash_attention", "route": "cuda",
          "source": "ecoflap_tpu_torch/csrc/flash_attn.cu",
          "replaces": "ecoflap_tpu/ops/attention.py:189",

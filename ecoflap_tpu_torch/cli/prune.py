@@ -33,6 +33,19 @@ BLIP-2 with ``scripts/blip2/ecoflap_first.py``'s flags:
       --max_sparsity_per_layer 0.6 --num_data_first_stage 128 \\
       --num_samples 128 --batch_size 8
 
+SparseGPT as the local method, from the sparsity dict of an earlier
+zeroth-order run (``scripts/blip2/ecoflap_sparsegpt_zeroth.py``):
+
+  python -m ecoflap_tpu_torch.cli.prune --model blip2_t5 --model_scale full \\
+      --pruning_method blipt5_sparsegpt_pruner \\
+      --vit_prune_spec 39-0.5-1.0-1.0 --t5_prune_spec 24-0.5-1.0-1.0 \\
+      --num_samples 128 --batch_size 8 \\
+      --sparsity_dict output/sparsity_dict/<job>.yaml
+
+The MeZO coarse stage scores BLIP-2's targets a block at a time by the lane
+ensemble and LLaMA's by the serial in-place cycle; ``--mezo_ensemble 1`` or
+``0`` sends every model one way.
+
 Runs on the card unless ``--device cpu``. The model is randomly initialised
 from ``--seed`` at ``--model_scale``; calibration is synthetic (for LLaMA the
 JAX CLI's token stream, so both CLIs cut the same windows for one seed).
@@ -70,6 +83,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_sparsity_per_layer", type=float, default=0.8)
     p.add_argument("--score_method", default="MEZO-GradOnly_sum")
     p.add_argument("--num_data_first_stage", type=int, default=128)
+    p.add_argument("--num_noise", type=int, default=1)
+    p.add_argument("--noise_eps", type=float, default=1e-3)
+    p.add_argument("--noise_mode", default="per_batch",
+                   choices=["per_batch", "shared"],
+                   help="MeZO sampling: per_batch = a fresh z per microbatch "
+                        "(the reference's); shared = one z across all "
+                        "microbatches (documented deviation, PARITY.md)")
+    p.add_argument("--mezo_ensemble", type=int, default=None, choices=[0, 1],
+                   help="1: score a block's targets together by the lane "
+                        "ensemble (out-of-place perturbation kernel); 0: the "
+                        "serial in-place cycle (in-place kernel); default: "
+                        "the model's choice (BLIP-2 1, LLaMA 0)")
+    p.add_argument("--sparsity_dict", default=None,
+                   help="a saved sparsity-dict YAML: skip the coarse stage")
+    p.add_argument("--sparsity_type", default="unstructured",
+                   help="unstructured | N:M (e.g. 2:4)")
     p.add_argument("--calib", default="synthetic", choices=["synthetic"])
     p.add_argument("--num_samples", type=int, default=128)
     p.add_argument("--batch_size", type=int, default=8)
@@ -125,12 +154,15 @@ def _llama(args, device, dtype):
 def main(argv=None) -> Dict[str, Any]:
     """Prune and print the result JSON line, which holds the run's
     ``phase_times`` (s) and ``peak_gib`` too. Returns that result plus the
-    per-target ``leaf_scores``."""
+    per-target ``leaf_scores`` and the pruned ``model``."""
     from ecoflap_tpu_torch.core.device import exact_float32_matmuls, resolve_device
     from ecoflap_tpu_torch.pruning.loader import load_pruner
     from ecoflap_tpu_torch.runners.runner import Runner, global_sparsity
 
     args = build_parser().parse_args(argv)
+    prune_n = prune_m = 0
+    if args.sparsity_type != "unstructured" and ":" in args.sparsity_type:
+        prune_n, prune_m = map(int, args.sparsity_type.split(":"))
     device = resolve_device(args.device)
     # TF32 off for matmuls and convolutions, once, here: float32 runs must
     # compute what the JAX package computes
@@ -154,6 +186,14 @@ def main(argv=None) -> Dict[str, Any]:
         max_sparsity_per_layer=args.max_sparsity_per_layer,
         score_method=args.score_method,
         num_data_first_stage=args.num_data_first_stage,
+        num_noise=args.num_noise,
+        noise_eps=args.noise_eps,
+        noise_mode=args.noise_mode,
+        mezo_ensemble=(None if args.mezo_ensemble is None
+                       else bool(args.mezo_ensemble)),
+        sparsity_dict=args.sparsity_dict,
+        prune_n=prune_n,
+        prune_m=prune_m,
         seed=args.seed,
     )
     t0 = time.time()
@@ -180,7 +220,7 @@ def main(argv=None) -> Dict[str, Any]:
         "peak_gib": peak,
     }
     print(json.dumps(result))
-    return {**result, "leaf_scores": dict(pruner.leaf_scores)}
+    return {**result, "leaf_scores": dict(pruner.leaf_scores), "model": model}
 
 
 if __name__ == "__main__":

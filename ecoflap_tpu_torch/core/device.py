@@ -26,3 +26,10 @@ def exact_float32_matmuls() -> None:
     at an entry point."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the card's queued work (a wall-clock reading after it is the
+    device's time); nothing on the CPU."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

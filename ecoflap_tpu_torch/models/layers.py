@@ -3,9 +3,9 @@ numerics (``ecoflap_tpu/models/layers.py``).
 
 Weights are in the torch ``(out, in)`` layout. Every prunable linear goes
 through ``dense(..., name=, stats=, collect=)``, which folds the Wanda
-statistic (sum of x^2 per input column, float32) into ``stats`` while
-computing the product -- the inline replacement for the reference's forward
-hooks.
+statistic (sum of x^2 per input column, float32) or the SparseGPT Gram
+matrix X^T X into ``stats`` while computing the product -- the inline
+replacement for the reference's forward hooks.
 """
 
 from __future__ import annotations
@@ -22,14 +22,19 @@ Stats = Optional[Dict[str, torch.Tensor]]
 
 def collect_stats(stats: Stats, name: Union[str, Sequence[str]],
                   x: torch.Tensor, collect: Optional[str]) -> None:
-    """Raw sum of x^2 per input column of the linear ``name`` (Wanda). A
-    sequence of names shares one sum: linears that read the same input."""
+    """Fold the statistic of the linear ``name``'s input ``x`` into
+    ``stats``, raw float32 sums: ``"wanda"`` the sum of x^2 per input column,
+    ``"hessian"`` the (in, in) Gram matrix X^T X (SparseGPT). A sequence of
+    names shares one tensor: linears that read the same input."""
     if stats is None or collect is None:
         return
-    if collect != "wanda":
-        raise ValueError(f"unknown collect mode {collect!r}")
     flat = x.reshape(-1, x.shape[-1]).to(torch.float32)
-    contrib = flat.square().sum(dim=0)
+    if collect == "wanda":
+        contrib = flat.square().sum(dim=0)
+    elif collect == "hessian":
+        contrib = flat.T @ flat
+    else:
+        raise ValueError(f"unknown collect mode {collect!r}")
     for n in ((name,) if isinstance(name, str) else name):
         stats[n] = stats[n] + contrib if n in stats else contrib
 

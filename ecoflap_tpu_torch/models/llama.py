@@ -366,7 +366,13 @@ def make_adapter(model: LlamaForCausalLM) -> ModelAdapter:
             return mm.loss_from_hidden(y, d["input_ids"], d.get("attn_mask"))
 
         keys = [k for k in ("input_ids", "attn_mask") if k in batch]
-        return [SuffixPlan(stack, finish, m, batch, batch_keys=keys)]
+        # the serial cycle by default: a block's suffix over 2048-token
+        # windows is compute-bound at one lane, so stacking seven lanes saves
+        # no time and holds their activations (PERF.md). Asked for, the lane
+        # ensemble finishes lane by lane: one lane's float32 logits at
+        # LLaMA-7B's 8 windows of 2048 are 2.1 GB, seven lanes' 14.7 GB
+        return [SuffixPlan(stack, finish, m, batch, batch_keys=keys,
+                           lanes=False, finish_lanes=1)]
 
     return ModelAdapter(
         name="llama",

@@ -141,9 +141,14 @@ class T5Attention(nn.Module):
 
     def forward(self, cfg: T5Config, x, kv, bias, stats, prefix, collect):
         """Unscaled attention; scores in the activation dtype (t5.py:247-276)."""
-        collect_stats(stats, f"{prefix}.q", x, collect)
-        collect_stats(stats, f"{prefix}.k", kv, collect)
-        collect_stats(stats, f"{prefix}.v", kv, collect)
+        # one statistic per distinct input: q, k and v share it in
+        # self-attention, k and v in cross-attention
+        if kv is x:
+            collect_stats(stats, (f"{prefix}.q", f"{prefix}.k", f"{prefix}.v"), x,
+                          collect)
+        else:
+            collect_stats(stats, f"{prefix}.q", x, collect)
+            collect_stats(stats, (f"{prefix}.k", f"{prefix}.v"), kv, collect)
         b, sq, _ = x.shape
         sk = kv.shape[1]
         h = cfg.num_heads
@@ -165,8 +170,7 @@ class T5DenseGatedActDense(nn.Module):
         self.wo = nn.Linear(cfg.d_ff, cfg.d_model, bias=False)
 
     def forward(self, x, stats, prefix, collect):
-        collect_stats(stats, f"{prefix}.wi_0", x, collect)
-        collect_stats(stats, f"{prefix}.wi_1", x, collect)
+        collect_stats(stats, (f"{prefix}.wi_0", f"{prefix}.wi_1"), x, collect)
         h = F.gelu(F.linear(x, self.wi_0.weight)) * F.linear(x, self.wi_1.weight)
         collect_stats(stats, f"{prefix}.wo", h, collect)
         return F.linear(h, self.wo.weight)

@@ -1,12 +1,15 @@
-"""Layer-streaming Wanda fine stage (port of ``_stream_prune_stack`` and
-``make_wanda_prune_fn`` in ``ecoflap_tpu/pruning/engine.py``; reference
-``T5LayerWandaPruner._prune`` wanda_pruner.py:217-290 and
-``VITLayerWandaPruner._prune`` :499-568).
+"""Layer-streaming fine stage, Wanda or SparseGPT (port of
+``_stream_prune_stack``, ``make_wanda_prune_fn`` and
+``make_sparsegpt_prune_fns`` in ``ecoflap_tpu/pruning/engine.py``;
+reference ``T5LayerWandaPruner._prune`` wanda_pruner.py:217-290,
+``VITLayerWandaPruner._prune`` :499-568 and the SparseGPT pruner's
+per-layer loop, sparsegpt_pruner.py).
 
-Per stack: build the block-0 inputs once; then per block collect the
-per-linear sum of x^2, prune every linear to its ratio in place, and
-re-forward the pruned block to make the next block's inputs, so downstream
-blocks calibrate against the pruned upstream (:281-285).
+Per stack: build the block-0 inputs once; then per block collect each
+linear's statistic (Wanda: the sum of x^2 per input column; SparseGPT: the
+Gram matrix X^T X), prune every linear to its ratio in place, and re-forward
+the pruned block to make the next block's inputs, so downstream blocks
+calibrate against the pruned upstream (:281-285).
 
 Each pass streams the batch in ``num_chunks`` slices and sums the
 statistics over them, so activation memory is one slice's; the pruner passes
@@ -14,35 +17,87 @@ its microbatch count, as the JAX package's fine stage does by default
 (``chunked_block_apply``, pruners.py:298). LLaMA-7B needs it: 128 windows of
 2048 tokens in one forward hold two float32 copies of the ``down_proj`` input
 alone, 11.5 GB each.
+
+SparseGPT sweeps a block's same-shape linears together
+(``sparsegpt_prune_weight_group``; T5's q/k/v/o and wi_0/wi_1) unless
+``sparsegpt_group=False``, the JAX package's ``ECOFLAP_SPARSEGPT_GROUP=0``.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Mapping
+from typing import Any, Callable, Dict, List, Mapping, Optional
 
 import torch
 from torch import nn
 
+from ecoflap_tpu_torch.core.device import synchronize
 from ecoflap_tpu_torch.pruning.adapter import StackSpec
 from ecoflap_tpu_torch.pruning.mezo import slice_microbatch
+from ecoflap_tpu_torch.pruning.sparsegpt import (
+    sparsegpt_prune_weight,
+    sparsegpt_prune_weight_group,
+)
 from ecoflap_tpu_torch.pruning.wanda import (
     apply_mask,
+    mask_n_m,
     mask_per_row,
     mask_per_tensor,
     wanda_metric,
 )
 
+LOCAL_METHODS = ("wanda", "sparsegpt")
 
-def make_wanda_prune_fn(per_row_mask: bool) -> Callable:
+
+def make_wanda_prune_fn(per_row_mask: bool, prune_n: int = 0,
+                        prune_m: int = 0) -> Callable:
     """(w, col_sq_sum, n_seq, ratio) -> boolean prune mask: the Wanda metric
-    and the reference's per-row or per-tensor selection."""
+    and the reference's n:m, per-row or per-tensor selection."""
 
     def prune_mask(w, col_sq_sum, n_seq, ratio):
         metric = wanda_metric(w, col_sq_sum.to(torch.float32) / n_seq)
+        if prune_n != 0:
+            return mask_n_m(metric, prune_n, prune_m)
         return (mask_per_row if per_row_mask else mask_per_tensor)(metric, ratio)
 
     return prune_mask
+
+
+def make_sparsegpt_prune_fns(blocksize: int = 128, percdamp: float = 0.01,
+                             prune_n: int = 0, prune_m: int = 0):
+    """(serial, grouped) OBS sweeps from raw X^T X sums: the serial one maps
+    (w, xtx, n_seq, ratio) to the pruned weight, the grouped one (K, out,
+    in) weights and (K, in, in) sums with K ratios to K pruned weights. The
+    Hessian is (2 / n_seq) X^T X in float32 (SparseGPT.add_batch); ``times``
+    receives the seconds of ``prepare_hinv`` and of the sweep."""
+
+    def prune_weight(w, xtx, n_seq, ratio, times=None):
+        h = (2.0 / n_seq) * xtx.to(torch.float32)
+        return sparsegpt_prune_weight(w, h, ratio, blocksize=blocksize,
+                                      percdamp=percdamp, prune_n=prune_n,
+                                      prune_m=prune_m, times=times)
+
+    def prune_weight_group(ws, xtxs, n_seq, ratios, times=None):
+        hs = (2.0 / n_seq) * xtxs.to(torch.float32)
+        return sparsegpt_prune_weight_group(ws, hs, ratios, blocksize=blocksize,
+                                            percdamp=percdamp, prune_n=prune_n,
+                                            prune_m=prune_m, times=times)
+
+    return prune_weight, prune_weight_group
+
+
+def shape_groups(block: nn.Module, linear_names) -> List[List[str]]:
+    """The block's linears grouped by weight shape over distinct weights, in
+    first-seen order (engine.py:282-296)."""
+    groups: Dict[Any, List[str]] = {}
+    seen = set()
+    for local in linear_names:
+        w = block.get_submodule(local).weight
+        if id(w) in seen:
+            continue
+        seen.add(id(w))
+        groups.setdefault(tuple(w.shape), []).append(local)
+    return list(groups.values())
 
 
 @torch.no_grad()
@@ -53,10 +108,27 @@ def stream_prune_stack(
     sparsity_ratio: Mapping[str, float],
     verbose: bool = True,
     num_chunks: int = 1,
+    method: str = "wanda",
+    prune_n: int = 0,
+    prune_m: int = 0,
+    sparsegpt_group: bool = True,
+    times: Optional[Dict[str, float]] = None,
 ) -> nn.Module:
-    """Wanda-prune one stack of ``model`` in place, ``num_chunks`` forwards
-    per pass (the count must divide the batch)."""
-    prune_mask = make_wanda_prune_fn(stack.per_row_mask)
+    """Prune one stack of ``model`` in place with the local ``method``
+    (``"wanda"`` or ``"sparsegpt"``), ``num_chunks`` forwards per pass (the
+    count must divide the batch). ``prune_n``:``prune_m`` > 0 selects n:m
+    masks. ``times``, when given, receives the seconds of the statistics
+    passes (``collect_s``), the pruning (``prune_s``; for SparseGPT it holds
+    ``prepare_hinv_s`` and ``sweep_s``) and the re-forwards
+    (``reforward_s``), each after a device synchronise."""
+    if method not in LOCAL_METHODS:
+        raise ValueError(f"unknown local method {method!r}")
+    sparsegpt = method == "sparsegpt"
+    if sparsegpt:
+        prune_weight, prune_group = make_sparsegpt_prune_fns(
+            prune_n=prune_n, prune_m=prune_m)
+    else:
+        prune_mask = make_wanda_prune_fn(stack.per_row_mask, prune_n, prune_m)
     t0 = time.time()
     x, cache = stack.prepare_inputs(model, batch)
     # a private contiguous copy: the passes below overwrite it slice by slice
@@ -71,21 +143,54 @@ def stream_prune_stack(
                slice_microbatch(cache, c, num_chunks, n)) for c in range(num_chunks)]
     if verbose:
         print(f"prepared inputs ({stack.name}) +{time.time() - t0:.1f}s")
+
+    def mark(key, since):
+        if times is None:
+            return since
+        synchronize(x.device)
+        now = time.time()
+        times[key] = times.get(key, 0.0) + now - since
+        return now
+
+    collect = "hessian" if sparsegpt else "wanda"
     blocks = stack.blocks(model)
+    ts = time.time()
     for i in range(stack.num_blocks):
         if verbose:
             print(f"pruning block {i} ({stack.name}) +{time.time() - t0:.1f}s")
         block = blocks[i]
         stats = {}
         for xc, cc in slices:
-            _, part = stack.block_forward(block, xc, cc, "wanda")
+            _, part = stack.block_forward(block, xc, cc, collect)
             stats = {k: stats[k] + v if k in stats else v for k, v in part.items()}
-        for local in stack.linear_names:
-            w = block.get_submodule(local).weight
-            ratio = float(sparsity_ratio[stack.weight_key(i, local)])
-            apply_mask(w, prune_mask(w, stats[local], n_seq, ratio))
+        ts = mark("collect_s", ts)
+
+        def ratio(local):
+            return float(sparsity_ratio[stack.weight_key(i, local)])
+
+        if not sparsegpt:
+            for local in stack.linear_names:
+                w = block.get_submodule(local).weight
+                apply_mask(w, prune_mask(w, stats[local], n_seq, ratio(local)))
+        else:
+            groups = (shape_groups(block, stack.linear_names) if sparsegpt_group
+                      else [[local] for local in stack.linear_names])
+            for group in groups:
+                ws = [block.get_submodule(local).weight for local in group]
+                if len(group) >= 2:
+                    new = prune_group(
+                        torch.stack(ws), torch.stack([stats[ln] for ln in group]),
+                        n_seq, [ratio(ln) for ln in group], times=times)
+                else:
+                    new = prune_weight(ws[0], stats[group[0]], n_seq,
+                                       ratio(group[0]), times=times)[None]
+                for w, w2 in zip(ws, new):
+                    w.copy_(w2)
+        del stats
+        ts = mark("prune_s", ts)
         for xc, cc in slices:
             xc.copy_(stack.block_forward(block, xc, cc, None)[0])
+        ts = mark("reforward_s", ts)
     return model
 
 

@@ -1,18 +1,34 @@
 """Zeroth-order (MeZO) importance scoring, the ECoFLaP coarse stage (port of
-``ecoflap_tpu/pruning/mezo.py``, serial path).
+``ecoflap_tpu/pruning/mezo.py``).
 
 Reference semantics (``compute_importance_scores_mezo``,
 layer_single_base_pruner.py:488-561): for each prunable weight, for each
 microbatch and noise draw, evaluate the mean calibration loss at W+eps z and
 W-eps z and accumulate ``sum_b | sum_n |L+ - L-| / 2eps |``.
 
-The perturbation is the reference's own in-place antithetic cycle
-(``zo_perturb_parameters``): +eps, -2eps, +eps with the same z, done by the
-hand-written kernel ``ops.perturb.perturb_inplace`` (3 launches per target,
-microbatch and noise draw). Its seed per (target, microbatch, draw) is
-derived from the run's integer seed with ``np.random.SeedSequence``.
+Two ways to evaluate it, the same estimator with the same z:
+* the lane ensemble: the targets of one block that a suffix plan covers
+  score together (``SuffixPlan.lane_losses``). Lane k's weight is the
+  out-of-place copy ``ops.perturb.perturb(w, seed, +-eps)``, the
+  hand-written kernel 2 (2 launches per target, microbatch and draw); the
+  model is never written.
+* the serial path: the reference's own in-place antithetic cycle
+  (``zo_perturb_parameters``): +eps, -2eps, +eps with the same z, done by
+  the hand-written kernel ``ops.perturb.perturb_inplace`` (3 launches per
+  target, microbatch and draw).
 
-The JAX package's lane ensemble and ``shared`` noise mode are later work.
+``ensemble=None`` (the default) lets each plan choose (``SuffixPlan.lanes``:
+BLIP-2's stacks take the ensemble, LLaMA's the serial cycle); True sends
+every planned target to the ensemble, as the JAX package's default does;
+False sends every target the serial way. Targets no plan covers always go
+the serial way.
+
+Noise modes: ``per_batch`` (default, the reference's sampling) draws a fresh
+z per (target, microbatch, draw); ``shared`` draws one z per (target, draw)
+for all microbatches and scores ``sum_mb |g+_mb - g-_mb| / 2eps`` over the
+per-microbatch mean losses (a documented deviation of the JAX package,
+PARITY.md). The kernel seed of a draw comes from the run's integer seed
+through ``np.random.SeedSequence`` (``perturb_seed``).
 """
 
 from __future__ import annotations
@@ -23,26 +39,36 @@ import numpy as np
 import torch
 from torch import nn
 
-from ecoflap_tpu_torch.ops.perturb import perturb_inplace
-from ecoflap_tpu_torch.pruning.plans import leading_dim
+from ecoflap_tpu_torch.ops.perturb import perturb, perturb_inplace
+from ecoflap_tpu_torch.pruning.plans import SuffixPlan, leading_dim
 from ecoflap_tpu_torch.pruning.targets import WeightTarget
 
 LossFn = Callable[[nn.Module, Any], torch.Tensor]  # -> (B,) per-sample losses
-# (target index, microbatch, noise draw, (out, in) shape) -> z
-NoiseFn = Callable[[int, int, int, Tuple[int, ...]], torch.Tensor]
+# (target index, microbatch or None in shared mode, noise draw, (out, in)
+# shape) -> z
+NoiseFn = Callable[[int, Optional[int], int, Tuple[int, ...]], torch.Tensor]
+NOISE_MODES = ("per_batch", "shared")
 
 
-def perturb_seed(seed: int, target: int, batch: int, draw: int) -> int:
-    """64-bit kernel seed for one (target, microbatch, noise draw)."""
-    words = np.random.SeedSequence([seed, target, batch, draw]).generate_state(
-        2, np.uint32)
+def perturb_seed(seed: int, target: int, batch: Optional[int], draw: int) -> int:
+    """64-bit kernel seed for one (target, microbatch, noise draw), from
+    ``SeedSequence([seed, target, batch, draw])``; in ``shared`` mode
+    (``batch=None``) for one (target, draw), from ``SeedSequence([seed,
+    target, draw], spawn_key=(1,))``. The spawn key keeps the shared streams
+    apart from every per-batch one: SeedSequence pads its entropy with
+    zeros, so [seed, target, draw] alone would be [seed, target, draw, 0]."""
+    if batch is None:
+        ss = np.random.SeedSequence([seed, target, draw], spawn_key=(1,))
+    else:
+        ss = np.random.SeedSequence([seed, target, batch, draw])
+    words = ss.generate_state(2, np.uint32)
     return int(words[0]) | (int(words[1]) << 32)
 
 
-def _add_scaled(w: torch.Tensor, z: torch.Tensor, scale: float) -> None:
-    """w += scale * z with the kernel's arithmetic (float32, one rounding)."""
-    out = w.to(torch.float32) + z.to(device=w.device, dtype=torch.float32) * scale
-    w.copy_(out.to(w.dtype))
+def _scaled(w: torch.Tensor, z: torch.Tensor, scale: float) -> torch.Tensor:
+    """w + scale * z with the kernel's arithmetic (float32, one rounding)."""
+    return (w.to(torch.float32)
+            + z.to(device=w.device, dtype=torch.float32) * scale).to(w.dtype)
 
 
 def slice_microbatch(data: Any, b: int, num: int, batch_size: int,
@@ -66,6 +92,41 @@ def slice_microbatch(data: Any, b: int, num: int, batch_size: int,
     return sel(data)
 
 
+def _lane_chunks(total: int, num_microbatches: int, lanes: int) -> int:
+    """Chunks of the coarse batch for a ``shared``-mode lane group: the
+    smallest divisor of ``total`` that is at least microbatches x lanes, so
+    a forward of K lanes holds no more samples than a serial forward of one
+    microbatch (mezo.py:355-364)."""
+    want = min(total, max(1, num_microbatches * lanes))
+    return next(c for c in range(want, total + 1) if total % c == 0)
+
+
+def _units(targets: List[WeightTarget], plans: Sequence[Any],
+           ensemble: Optional[bool]):
+    """Scoring units in target order: (first index, targets, plan). Where a
+    suffix plan takes the ensemble (``ensemble``, or the plan's own
+    ``lanes`` when it is None), maximal runs of targets of one block that
+    the plan covers form a lane group (mezo.py:466-489); every other target
+    is a unit of its own with ``plan=None``: it goes the serial way."""
+    def plan_of(t):
+        return next((p for p in plans if p.match(t.name)), None)
+
+    units, i = [], 0
+    while i < len(targets):
+        t, plan = targets[i], plan_of(targets[i])
+        j = i + 1
+        if isinstance(plan, SuffixPlan) and (
+                plan.lanes if ensemble is None else ensemble):
+            while (j < len(targets) and targets[j].block_index == t.block_index
+                   and plan_of(targets[j]) is plan):
+                j += 1
+            units.append((i, targets[i:j], plan))
+        else:
+            units.append((i, [t], None))
+        i = j
+    return units
+
+
 def mezo_leaf_scores(
     loss_fn: LossFn,
     model: nn.Module,
@@ -78,6 +139,7 @@ def mezo_leaf_scores(
     noise_mode: str = "per_batch",
     loss_plans: Optional[Sequence[Any]] = None,
     noise: Optional[NoiseFn] = None,
+    ensemble: Optional[bool] = None,
 ) -> Dict[str, float]:
     """Scalar |projected gradient| score per target.
 
@@ -85,57 +147,115 @@ def mezo_leaf_scores(
       loss_fn: (model, batch) -> (B,) per-sample losses.
       data: the stacked coarse batch, leading dim = microbatches * bs.
       targets: weights to score, in the adapter's order.
-      eps: perturbation scale. num_noise: draws per (target, microbatch).
+      eps: perturbation scale. num_noise: draws per (target, microbatch), or
+        per target in ``shared`` mode.
       seed: integer seed of the kernel's noise streams.
+      noise_mode: ``per_batch`` or ``shared`` (module docstring).
       loss_plans: suffix plans; the first whose ``match`` hits a target
         supplies its (loss_fn, data).
-      noise: test hook returning z for (target index, microbatch, draw,
-        shape), used in place of the kernel's stream.
+      noise: test hook returning z for (target index, microbatch or None in
+        ``shared`` mode, draw, shape), used in place of the kernel's stream.
+      ensemble: True scores the targets a plan covers by the lane ensemble
+        (kernel 2), False by the serial in-place cycle (kernel 1), None as
+        each plan's ``lanes`` says.
     Returns {target name: score}.
     """
-    if noise_mode == "shared":
-        raise NotImplementedError(
-            "noise_mode='shared' is not ported yet (ROADMAP.md, 'lane ensemble "
-            "and shared noise')")
-    if noise_mode != "per_batch":
+    if noise_mode not in NOISE_MODES:
         raise ValueError(f"unknown noise_mode {noise_mode!r}")
+    shared = noise_mode == "shared"
     plans = list(loss_plans or [])
     for p in plans:
         p.data  # build every rolling cache before the first perturbation
     batch_size = leading_dim(data)
+    two_eps = 2.0 * eps
 
-    def perturb(w, ti, b, n, scale):
+    # b is the microbatch, None in shared mode (one z for all microbatches)
+    def perturb_in_place(w, ti, b, n, scale):
         if noise is None:
             perturb_inplace(w, perturb_seed(seed, ti, b, n), scale)
         else:
-            _add_scaled(w, noise(ti, b, n, tuple(w.shape)), scale)
+            w.copy_(_scaled(w, noise(ti, b, n, tuple(w.shape)), scale))
+
+    def lanes(ws, i0, b, n, scale):
+        if noise is None:
+            return [perturb(w, perturb_seed(seed, i0 + k, b, n), scale)
+                    for k, w in enumerate(ws)]
+        return [_scaled(w, noise(i0 + k, b, n, tuple(w.shape)), scale)
+                for k, w in enumerate(ws)]
+
+    def microbatches(tdata, static, num):
+        return [slice_microbatch(tdata, b, num, batch_size, static) for b in range(num)]
+
+    def score_serial(ti, t):
+        plan = next((p for p in plans if p.match(t.name)), None)
+        if plan is not None:
+            tfn, tdata, static = plan.loss_fn, plan.prepare(model, t.name), \
+                plan.static_keys
+        else:
+            tfn, tdata, static = loss_fn, data, ()
+        w = t.weight(model)
+        mbs = microbatches(tdata, static, num_microbatches)
+        score = torch.zeros((), dtype=torch.float32, device=w.device)
+        if shared:
+            for n in range(num_noise):
+                perturb_in_place(w, ti, None, n, eps)
+                g_plus = torch.stack([tfn(model, mb).mean() for mb in mbs])
+                perturb_in_place(w, ti, None, n, -2.0 * eps)
+                g_minus = torch.stack([tfn(model, mb).mean() for mb in mbs])
+                perturb_in_place(w, ti, None, n, eps)  # restore
+                score = score + ((g_plus - g_minus).abs() / two_eps).sum()
+            return score
+        for b, mb in enumerate(mbs):
+            per_batch = torch.zeros((), dtype=torch.float32, device=w.device)
+            for n in range(num_noise):
+                perturb_in_place(w, ti, b, n, eps)
+                l_plus = tfn(model, mb).mean()
+                perturb_in_place(w, ti, b, n, -2.0 * eps)
+                l_minus = tfn(model, mb).mean()
+                perturb_in_place(w, ti, b, n, eps)  # restore
+                per_batch = per_batch + (l_plus - l_minus).abs() / two_eps
+            # reference: gradients_dict[name] += |per_batch| (:549)
+            score = score + per_batch.abs()
+        return score
+
+    def score_group(i0, group, plan):
+        tdata = plan.prepare(model, group[0].name)
+        paths = plan.lane_paths(group)
+        ws = [t.weight(model) for t in group]
+        k = len(group)
+        score = torch.zeros(k, dtype=torch.float32, device=ws[0].device)
+        if shared:
+            chunks = microbatches(tdata, plan.static_keys,
+                                  _lane_chunks(batch_size, num_microbatches, k))
+
+            def group_means(lane_ws):
+                losses = torch.cat([plan.lane_losses(model, c, paths, lane_ws)
+                                    for c in chunks], dim=1)
+                return losses.reshape(k, num_microbatches, -1).mean(dim=2)
+
+            for n in range(num_noise):
+                g_plus = group_means(lanes(ws, i0, None, n, eps))
+                g_minus = group_means(lanes(ws, i0, None, n, -eps))
+                score = score + ((g_plus - g_minus).abs() / two_eps).sum(dim=1)
+            return score
+        for b, mb in enumerate(microbatches(tdata, plan.static_keys, num_microbatches)):
+            per_batch = torch.zeros_like(score)
+            for n in range(num_noise):
+                l_plus = plan.lane_losses(model, mb, paths, lanes(ws, i0, b, n, eps))
+                l_minus = plan.lane_losses(model, mb, paths, lanes(ws, i0, b, n, -eps))
+                per_batch = per_batch + (l_plus.mean(dim=1)
+                                         - l_minus.mean(dim=1)).abs() / two_eps
+            score = score + per_batch.abs()
+        return score
 
     pending: List[torch.Tensor] = []
     with torch.no_grad():
-        for ti, t in enumerate(targets):
-            plan = next((p for p in plans if p.match(t.name)), None)
-            if plan is not None:
-                tfn, tdata, static = plan.loss_fn, plan.prepare(model, t.name), \
-                    plan.static_keys
+        for i0, group, plan in _units(targets, plans, ensemble):
+            if plan is None:
+                pending.append(score_serial(i0, group[0]).reshape(1))
             else:
-                tfn, tdata, static = loss_fn, data, ()
-            w = t.weight(model)
-            score = torch.zeros((), dtype=torch.float32, device=w.device)
-            for b in range(num_microbatches):
-                mb = slice_microbatch(tdata, b, num_microbatches, batch_size,
-                                      static)
-                per_batch = torch.zeros((), dtype=torch.float32, device=w.device)
-                for n in range(num_noise):
-                    perturb(w, ti, b, n, eps)
-                    l_plus = tfn(model, mb).mean()
-                    perturb(w, ti, b, n, -2.0 * eps)
-                    l_minus = tfn(model, mb).mean()
-                    perturb(w, ti, b, n, eps)  # restore
-                    per_batch = per_batch + (l_plus - l_minus).abs() / (2.0 * eps)
-                # reference: gradients_dict[name] += |per_batch| (:549)
-                score = score + per_batch.abs()
-            pending.append(score)
-    vals = torch.stack(pending).cpu().tolist() if pending else []
+                pending.append(score_group(i0, group, plan))
+    vals = torch.cat(pending).cpu().tolist() if pending else []
     return {t.name: float(v) for t, v in zip(targets, vals)}
 
 

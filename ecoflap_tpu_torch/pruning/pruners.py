@@ -1,18 +1,22 @@
-"""``TwoStagePruner``: ECoFLaP's coarse sparsity allocation + local Wanda
-(port of ``ecoflap_tpu/pruning/pruners.py`` for ``local_method="wanda"``;
-reference ``BLIPT5LayerWandaPruner``, wanda_pruner.py:660-876).
+"""``TwoStagePruner``: ECoFLaP's coarse sparsity allocation + a local
+method, Wanda or SparseGPT (port of ``ecoflap_tpu/pruning/pruners.py``;
+reference ``BLIPT5LayerWandaPruner``, wanda_pruner.py:660-876, and the
+SparseGPT pruners).
 
 Registered under the reference names ``blipt5_wanda_pruner`` and
-``llama_wanda_pruner``, as the JAX package registers its ``WandaPruner``.
+``llama_wanda_pruner`` (``TwoStagePruner``), ``blipt5_sparsegpt_pruner`` and
+``llama_sparsegpt_pruner`` (``SparseGPTPruner``), as the JAX package
+registers its ``WandaPruner`` and ``SparseGPTPruner``.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Union
 
 import torch
 
+from ecoflap_tpu_torch.core.device import synchronize
 from ecoflap_tpu_torch.core.registry import registry
 from ecoflap_tpu_torch.core.spec import parse_prune_spec
 from ecoflap_tpu_torch.pruning.adapter import ModelAdapter
@@ -21,7 +25,7 @@ from ecoflap_tpu_torch.pruning.engine import stream_prune_stack
 from ecoflap_tpu_torch.pruning.mezo import NoiseFn
 from ecoflap_tpu_torch.pruning.plans import leading_dim
 from ecoflap_tpu_torch.pruning.sparsity import compute_layer_sparsity
-from ecoflap_tpu_torch.runners.runner import global_sparsity
+from ecoflap_tpu_torch.runners.runner import global_sparsity, read_flat_yaml
 
 
 def _slice(tree: Any, n: int) -> Any:
@@ -30,18 +34,20 @@ def _slice(tree: Any, n: int) -> Any:
     return tree[:n]
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 class TwoStagePruner:
-    """Args mirror the reference kwargs (layer_single_base_pruner.py:19-63).
-    ``seed`` keys the coarse stage's noise; ``noise`` is the tests' hook that
-    replaces it (mezo.py). A given ``sparsity_dict`` skips the coarse stage.
-    ``leaf_scores`` receives the coarse stage's per-target scores (MeZO
-    scores, or first-order importance sums for ``Grad*`` methods). The fine
-    stage forwards one microbatch at a time (engine.py)."""
+    """Args mirror the reference kwargs (layer_single_base_pruner.py:19-63)
+    and the JAX ``pruner_cfg`` names (cli/prune.py:650-667). ``seed`` keys
+    the coarse stage's noise; ``noise`` is the tests' hook that replaces it
+    (mezo.py); ``mezo_ensemble`` True scores by the lane ensemble (kernel
+    2), False by the serial in-place cycle (kernel 1), None as each suffix
+    plan chooses (``mezo_leaf_scores``). A given
+    ``sparsity_dict`` (a mapping, or the path of a saved YAML) skips the
+    coarse stage. ``prune_n``:``prune_m`` > 0 prunes n:m. ``leaf_scores``
+    receives the coarse stage's per-target scores (MeZO scores, or
+    first-order importance sums for ``Grad*`` methods). The fine stage
+    forwards one microbatch at a time (engine.py)."""
+
+    local_method = "wanda"
 
     def __init__(
         self,
@@ -56,7 +62,11 @@ class TwoStagePruner:
         num_data_first_stage: int = 128,
         num_noise: int = 1,
         noise_eps: float = 1e-3,
-        sparsity_dict: Optional[Mapping[str, float]] = None,
+        noise_mode: str = "per_batch",
+        mezo_ensemble: Optional[bool] = None,
+        sparsity_dict: Optional[Union[str, Mapping[str, float]]] = None,
+        prune_n: int = 0,
+        prune_m: int = 0,
         seed: int = 0,
         noise: Optional[NoiseFn] = None,
         verbose: bool = True,
@@ -72,7 +82,11 @@ class TwoStagePruner:
         self.num_data_first_stage = num_data_first_stage
         self.num_noise = num_noise
         self.noise_eps = noise_eps
+        self.noise_mode = noise_mode
+        self.mezo_ensemble = mezo_ensemble
         self.sparsity_dict = sparsity_dict
+        self.prune_n = prune_n
+        self.prune_m = prune_m
         self.seed = seed
         self.noise = noise
         self.verbose = verbose
@@ -94,7 +108,9 @@ class TwoStagePruner:
                      sparsity_ratio_granularity: Optional[str]):
         """Sparsity dict for the fine stage (wanda_pruner.py:292-340)."""
         if self.sparsity_dict is not None:
-            return dict(self.sparsity_dict)
+            sd = self.sparsity_dict
+            return self._adapt_sparsity_dict(
+                read_flat_yaml(sd) if isinstance(sd, str) else dict(sd))
         mapping = self.adapter.group_mapping(sparsity_ratio_granularity)
         data, num_mb = self._coarse_data()
         # the suffix plans serve both methods: MeZO evaluates suffixes
@@ -108,9 +124,42 @@ class TwoStagePruner:
             self.adapter.targets(), original_sparsity, mapping,
             max_sparsity_per_layer=self.max_sparsity_per_layer,
             score_method=self.score_method, num_noise=self.num_noise,
-            noise_eps=self.noise_eps, seed=self.seed, loss_plans=plans,
+            noise_eps=self.noise_eps, seed=self.seed, noise_mode=self.noise_mode,
+            ensemble=self.mezo_ensemble, loss_plans=plans,
             noise=self.noise, leaf_scores_out=self.leaf_scores,
             verbose=self.verbose)
+
+    def _adapt_sparsity_dict(self, sd: Dict[str, float]) -> Dict[str, float]:
+        """Cross-model reuse of a sparsity dict (pruners.py:206-245,
+        wanda_pruner.py:570-585), over the stacks being pruned only:
+        ``visual_encoder.`` keys remap to ``visual.`` and back, targets the
+        source model lacks are filled with 0 (kept dense), loudly, and a dict
+        that covers under half the targets raises ``KeyError``."""
+        pruned = [s for s in self.adapter.stacks
+                  if self._spec_for_stack(s.name) is not None]
+        targets = {s.weight_key(i, ln) for s in pruned
+                   for i in range(s.num_blocks) for ln in s.linear_names}
+        if targets <= set(sd):
+            return sd
+        out = dict(sd)
+        for a, b in (("visual_encoder.", "visual."), ("visual.", "visual_encoder.")):
+            if any(k.startswith(a) for k in sd) and any(t.startswith(b) for t in targets):
+                for k, v in sd.items():
+                    if k.startswith(a):
+                        out.setdefault(b + k[len(a):], v)
+        missing = sorted(t for t in targets if t not in out)
+        if missing:
+            covered = len(targets) - len(missing)
+            if covered < 0.5 * len(targets):
+                raise KeyError(
+                    f"--sparsity_dict covers only {covered}/{len(targets)} targets "
+                    f"(first missing: {missing[:3]}) -- wrong dict for this model")
+            print(f"sparsity_dict: zero-filling {len(missing)} targets the source "
+                  f"model lacks (kept dense): {missing[:4]}"
+                  f"{' ...' if len(missing) > 4 else ''}")
+            for t in missing:
+                out[t] = 0.0
+        return out
 
     def prune(self):
         """(model, sparsity dict), the reference ``prune()`` contract
@@ -132,7 +181,7 @@ class TwoStagePruner:
                                  "(wanda_pruner.py:807)")
             global_dict = self.get_sparsity(ratios.pop(),
                                             self.sparsity_ratio_granularity)
-            _sync(dev)
+            synchronize(dev)
             self.phase_times["coarse_s"] = time.time() - t0
         for stack in self.adapter.stacks:
             spec = self._spec_for_stack(stack.name)
@@ -141,11 +190,17 @@ class TwoStagePruner:
             stack_dict = (global_dict if global_dict is not None
                           else UniformSparsity(parse_prune_spec(spec).sparsity))
             ts = time.time()
+            split: Optional[Dict[str, float]] = (
+                {} if self.local_method == "sparsegpt" else None)
             stream_prune_stack(stack, model, self.data, stack_dict,
                                verbose=self.verbose,
-                               num_chunks=self.num_microbatches)
-            _sync(dev)
+                               num_chunks=self.num_microbatches,
+                               method=self.local_method, prune_n=self.prune_n,
+                               prune_m=self.prune_m, times=split)
+            synchronize(dev)
             self.phase_times[f"fine_{stack.name}_s"] = time.time() - ts
+            for k, v in (split or {}).items():
+                self.phase_times[f"fine_{stack.name}_{k}"] = v
         if self.verbose:
             print(f"prune spent {time.time() - t0:.3f} s")
         return model, global_dict
@@ -156,5 +211,13 @@ class TwoStagePruner:
                                for t in self.adapter.targets())
 
 
+class SparseGPTPruner(TwoStagePruner):
+    """The same two stages with SparseGPT as the local method."""
+
+    local_method = "sparsegpt"
+
+
 registry.register("pruner", "blipt5_wanda_pruner", TwoStagePruner)
 registry.register("pruner", "llama_wanda_pruner", TwoStagePruner)
+registry.register("pruner", "blipt5_sparsegpt_pruner", SparseGPTPruner)
+registry.register("pruner", "llama_sparsegpt_pruner", SparseGPTPruner)

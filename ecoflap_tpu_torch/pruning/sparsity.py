@@ -42,6 +42,8 @@ def compute_layer_sparsity(
     num_noise: int = 1,
     noise_eps: float = 1e-3,
     seed: int = 0,
+    noise_mode: str = "per_batch",
+    ensemble: Optional[bool] = None,
     loss_plans: Optional[Sequence[Any]] = None,
     noise: Optional[NoiseFn] = None,
     leaf_scores_out: Optional[Dict[str, float]] = None,
@@ -50,6 +52,7 @@ def compute_layer_sparsity(
     """Per-layer sparsity ratios under a global budget. ``loss_plans`` are
     the suffix plans: MeZO evaluates suffixes through them, first-order
     streams each planned stack's backward block by block.
+    ``noise_mode`` and ``ensemble`` go to ``mezo_leaf_scores``.
     ``leaf_scores_out``, when given, receives the per-target scores: the
     MeZO scores, or the first-order importance sums."""
     if max_sparsity_per_layer < original_sparsity:
@@ -69,7 +72,8 @@ def compute_layer_sparsity(
     if score_compute.startswith("MEZO"):
         leaf_scores = mezo_leaf_scores(
             loss_fn, model, data, num_microbatches, scored, eps=noise_eps,
-            num_noise=num_noise, seed=seed, loss_plans=loss_plans, noise=noise)
+            num_noise=num_noise, seed=seed, noise_mode=noise_mode,
+            loss_plans=loss_plans, noise=noise, ensemble=ensemble)
         importance = mezo_group_sums(model, scored, leaf_scores, score_compute)
     else:
         leaf_scores = importance = first_order_group_sums(

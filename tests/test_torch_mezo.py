@@ -1,6 +1,6 @@
-"""The port's serial in-place MeZO scoring against the JAX package's default
-(lane-ensemble) scoring with the same noise, and the coarse stage's
-allocation.
+"""The port's serial in-place MeZO scoring (``ensemble=False``) against the
+JAX package's default (lane-ensemble) scoring with the same noise, and the
+coarse stage's allocation.
 
 Noise: the port's ``noise`` hook replays the JAX draws
 normal(fold_in(fold_in(fold_in(key, target), b), n)), the key chain the
@@ -25,7 +25,16 @@ from ecoflap_tpu_torch.pruning.allocator import compute_sparsity_per_group as ta
 from ecoflap_tpu_torch.pruning.mezo import mezo_group_sums as tgroup_sums
 from ecoflap_tpu_torch.pruning.mezo import mezo_leaf_scores as tscores
 from ecoflap_tpu_torch.pruning.sparsity import compute_layer_sparsity as tsparsity
-from tests.torch_parity import jax_noise, np_batch, tiny_pair, to_jax, to_torch
+from tests.torch_parity import (  # noqa: F401 (one_torch_thread: a fixture)
+    jax_noise,
+    np_batch,
+    one_torch_thread,
+    tiny_pair,
+    to_jax,
+    to_torch,
+)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 EPS = 0.2
 RTOL, ATOL = 1e-3, 2e-5
@@ -47,7 +56,8 @@ def scores(setup):
     js = jscores(jad.loss_fn, params, jb, 2, jad.targets(), eps=EPS, key=key,
                  loss_plans=jad.build_mezo_plans(params, jb))
     ts = tscores(tad.loss_fn, model, tb, 2, tad.targets(), eps=EPS,
-                 noise=jax_noise(key), loss_plans=tad.build_mezo_plans(model, tb))
+                 noise=jax_noise(key), loss_plans=tad.build_mezo_plans(model, tb),
+                 ensemble=False)
     return {k: float(v) for k, v in js.items()}, ts
 
 
@@ -117,10 +127,14 @@ def test_compute_layer_sparsity_end_to_end(setup):
 
 
 def test_uniform_when_no_granularity_and_shared_mode_not_ported(setup):
+    """No granularity gives the uniform dict; an unknown ``noise_mode``
+    raises ``ValueError``. (The name is kept from before ``shared`` mode was
+    ported, when this test checked its refusal; tests/test_torch_mezo_ensemble.py
+    holds ``shared`` against the JAX package.)"""
     cfg, params, model, batch = setup
     tad = tblip2.make_adapter(model)
     u = tsparsity(tad.loss_fn, model, to_torch(batch), 2, tad.targets(), 0.5, None)
     assert u["anything"] == 0.5
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="noise_mode"):
         tscores(tad.loss_fn, model, to_torch(batch), 2, tad.targets()[:1],
-                noise_mode="shared")
+                noise_mode="per_sample")

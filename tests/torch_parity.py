@@ -6,6 +6,7 @@ replays, and both packages' first-order sums on one model."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from ecoflap_tpu.core.pytree import flatten_named
@@ -14,6 +15,19 @@ from ecoflap_tpu.models import llama as jllama
 from ecoflap_tpu_torch.models import blip2 as tblip2
 from ecoflap_tpu_torch.models import llama as tllama
 from ecoflap_tpu_torch.models.convert import load_jax_params
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for a test module, restored after it. At
+    these tiny shapes the threads buy nothing, and when the suite's workers
+    share a machine they oversubscribe its cores: a CLI test took 50 s with
+    8 threads and 2.8 s with 1 beside a running suite. Use it with
+    ``pytestmark = pytest.mark.usefixtures("one_torch_thread")``."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def np_batch(cfg, n=8, src=6, tgt=5, seed=0, pad_tail=0):
@@ -70,10 +84,15 @@ def lm_batch(cfg, n=8, seqlen=16, seed=0):
 def jax_noise(key):
     """The port's MeZO noise hook replaying the JAX draws:
     normal(fold_in(fold_in(fold_in(key, target), b), n), (in, out)), transposed
-    to (out, in) -- the key chain of ecoflap_tpu/pruning/mezo.py:405,436."""
+    to (out, in) -- the key chain of ecoflap_tpu/pruning/mezo.py:405,436; in
+    ``shared`` mode (b is None) normal(fold_in(fold_in(key, target), n)), the
+    chain of both shared paths (mezo.py:373-381, 413)."""
 
     def noise(ti, b, n, shape):
-        k = jax.random.fold_in(jax.random.fold_in(jax.random.fold_in(key, ti), b), n)
+        k = jax.random.fold_in(key, ti)
+        if b is not None:
+            k = jax.random.fold_in(k, b)
+        k = jax.random.fold_in(k, n)
         z = jax.random.normal(k, (shape[1], shape[0]), jnp.float32)
         return torch.from_numpy(np.asarray(z).T.copy())
 
