@@ -42,13 +42,28 @@ zeroth-order run (``scripts/blip2/ecoflap_sparsegpt_zeroth.py``):
       --num_samples 128 --batch_size 8 \\
       --sparsity_dict output/sparsity_dict/<job>.yaml
 
+The global-mask baselines, ``scripts/blip2/mag.py`` and
+``scripts/blip2/iterative_global_gradient.py`` (``--is_global``: every
+target pruned by one threshold, 3 iterations; ``--save_pruned_model``
+writes ``pruned_checkpoint/<job>.pth``):
+
+  python -m ecoflap_tpu_torch.cli.prune --model blip2_t5 --model_scale full \\
+      --pruning_method blipt5_global_mag_pruner --prune_spec 24-0.5-1.0-1.0 \\
+      --is_global --iteration 3 --num_samples 128 --batch_size 8 \\
+      --save_pruned_model
+
+(``blipt5_global_gradmagabs_pruner`` for |W| |G|). ``--coarse_only`` writes
+the coarse stage's sparsity dict and stops; ``--ckpt`` starts from a
+reference-named ``.pth`` instead of the random init.
+
 The MeZO coarse stage scores BLIP-2's targets a block at a time by the lane
 ensemble and LLaMA's by the serial in-place cycle; ``--mezo_ensemble 1`` or
 ``0`` sends every model one way.
 
-Runs on the card unless ``--device cpu``. The model is randomly initialised
-from ``--seed`` at ``--model_scale``; calibration is synthetic (for LLaMA the
-JAX CLI's token stream, so both CLIs cut the same windows for one seed).
+Runs on the card unless ``--device cpu``. Without ``--ckpt`` the model is
+randomly initialised from ``--seed`` at ``--model_scale``; calibration is
+synthetic (for LLaMA the JAX CLI's token stream, so both CLIs cut the same
+windows for one seed).
 """
 
 from __future__ import annotations
@@ -71,15 +86,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "OpenLLaMA-3B; full = EVA ViT-g + FlanT5-XL or LLaMA-7B")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--dtype", default="auto", choices=["auto", "float32", "bfloat16"],
+                   help="weight dtype; auto = bf16 for small/full, f32 for tiny")
+    p.add_argument("--ckpt", default=None,
+                   help="a reference-named torch .pth to load instead of the "
+                        "random init")
     p.add_argument("--pruning_method", default="blipt5_wanda_pruner")
     p.add_argument("--t5_prune_spec", default=None)
     p.add_argument("--vit_prune_spec", default=None)
     p.add_argument("--prune_spec", default=None,
-                   help="llama: the spec of model.layers")
+                   help="llama: the spec of model.layers; blip2_t5: the T5 "
+                        "stacks' unless --t5_prune_spec, and every stack's "
+                        "without a spec of its own")
     p.add_argument("--seqlen", type=int, default=2048,
                    help="llama calibration window (32 at --model_scale tiny)")
     p.add_argument("--sparsity_ratio_granularity", default=None,
-                   choices=[None, "block"])
+                   choices=[None, "layer", "block", "model"])
+    p.add_argument("--prune_per_model", action="store_true",
+                   help="allocate the budget within each submodel")
     p.add_argument("--max_sparsity_per_layer", type=float, default=0.8)
     p.add_argument("--score_method", default="MEZO-GradOnly_sum")
     p.add_argument("--num_data_first_stage", type=int, default=128)
@@ -99,13 +123,31 @@ def build_parser() -> argparse.ArgumentParser:
                    help="a saved sparsity-dict YAML: skip the coarse stage")
     p.add_argument("--sparsity_type", default="unstructured",
                    help="unstructured | N:M (e.g. 2:4)")
+    p.add_argument("--hessian_bf16", action="store_true",
+                   help="SparseGPT: round each summed Gram matrix once to bf16")
+    p.add_argument("--is_global", action="store_true",
+                   help="global-mask baseline pruners: their own configuration")
+    p.add_argument("--iteration", type=int, default=1)
+    p.add_argument("--coarse_only", action="store_true",
+                   help="write the coarse stage's sparsity dict and stop")
     p.add_argument("--calib", default="synthetic", choices=["synthetic"])
     p.add_argument("--num_samples", type=int, default=128)
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--output_dir", default="output")
     p.add_argument("--job_id", default=None)
+    p.add_argument("--save_pruned_model", action="store_true",
+                   help="write the pruned model, float32 under the reference "
+                        "names, to pruned_checkpoint/<job>.pth")
     p.add_argument("--seed", type=int, default=42)
     return p
+
+
+def _load_ckpt(model, path: str) -> None:
+    from ecoflap_tpu_torch.utils.checkpoint import load_into, load_torch_checkpoint
+
+    ignored = load_into(model, load_torch_checkpoint(path))
+    print(f"--ckpt {path}: loaded {len(model.state_dict())} tensors, "
+          f"ignored {ignored} keys the model does not have")
 
 
 def _blip2(args, device, dtype):
@@ -117,7 +159,10 @@ def _blip2(args, device, dtype):
     cfg = (blip2.blip2_flant5xl() if scale == "full"
            else blip2.blip2_small() if scale == "small"
            else blip2.tiny_config())
-    model = blip2.build_model(cfg, device=device, dtype=dtype, seed=args.seed)
+    model = blip2.build_model(cfg, device=device, dtype=dtype,
+                              seed=None if args.ckpt else args.seed)
+    if args.ckpt:
+        _load_ckpt(model, args.ckpt)
     spec = cal.CalibrationSpec(args.num_samples, args.batch_size)
     samples = cal.synthetic_vl_samples(args.num_samples, cfg.vit.img_size,
                                        args.seed)
@@ -126,9 +171,10 @@ def _blip2(args, device, dtype):
     stack_specs = {}
     if args.vit_prune_spec:
         stack_specs["visual_encoder.blocks"] = args.vit_prune_spec
-    if args.t5_prune_spec:
-        stack_specs["t5_model.encoder.block"] = args.t5_prune_spec
-        stack_specs["t5_model.decoder.block"] = args.t5_prune_spec
+    t5_spec = args.t5_prune_spec or args.prune_spec
+    if t5_spec:
+        stack_specs["t5_model.encoder.block"] = t5_spec
+        stack_specs["t5_model.decoder.block"] = t5_spec
     return blip2.make_adapter(model), batch, spec.num_microbatches, stack_specs
 
 
@@ -141,7 +187,10 @@ def _llama(args, device, dtype):
            else llama.open_llama_3b() if scale == "small"
            else llama.tiny_config())
     seqlen = args.seqlen if scale in ("full", "small") else 32
-    model = llama.build_model(cfg, device=device, dtype=dtype, seed=args.seed)
+    model = llama.build_model(cfg, device=device, dtype=dtype,
+                              seed=None if args.ckpt else args.seed)
+    if args.ckpt:
+        _load_ckpt(model, args.ckpt)
     stream = cal.synthetic_token_stream(args.num_samples, seqlen, cfg.vocab_size,
                                         args.seed)
     batch = cal.build_lm_calibration_batch(stream, args.num_samples, seqlen,
@@ -153,11 +202,17 @@ def _llama(args, device, dtype):
 
 def main(argv=None) -> Dict[str, Any]:
     """Prune and print the result JSON line, which holds the run's
-    ``phase_times`` (s) and ``peak_gib`` too. Returns that result plus the
-    per-target ``leaf_scores`` and the pruned ``model``."""
+    ``phase_times`` (s) and ``peak_gib`` too (and with ``--save_pruned_model``
+    the ``.pth``'s path and the seconds its export and write took). Returns
+    that result plus the per-target ``leaf_scores``, the pruned ``model``
+    and the ``pruner``. With
+    ``--coarse_only`` it writes the sparsity dict, prints and returns the
+    JAX CLI's short result (job id, wall, dict path) and stops."""
     from ecoflap_tpu_torch.core.device import exact_float32_matmuls, resolve_device
+    from ecoflap_tpu_torch.core.spec import parse_prune_spec
     from ecoflap_tpu_torch.pruning.loader import load_pruner
     from ecoflap_tpu_torch.runners.runner import Runner, global_sparsity
+    from ecoflap_tpu_torch.utils.checkpoint import export_state_dict
 
     args = build_parser().parse_args(argv)
     prune_n = prune_m = 0
@@ -168,7 +223,10 @@ def main(argv=None) -> Dict[str, Any]:
     # compute what the JAX package computes
     exact_float32_matmuls()
     # bf16 weights as the reference runs its models; float32 at test size
-    dtype = torch.bfloat16 if args.model_scale in ("full", "small") else torch.float32
+    if args.dtype != "auto":
+        dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    else:
+        dtype = torch.bfloat16 if args.model_scale in ("full", "small") else torch.float32
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
@@ -177,28 +235,51 @@ def main(argv=None) -> Dict[str, Any]:
     batch = {k: t.to(device) for k, t in batch.items()}
 
     job_id = args.job_id or (
-        f"{args.pruning_method}_{args.score_method}"
-        f"_{args.sparsity_ratio_granularity}")
+        f"{args.pruning_method}_{args.prune_spec or 'none'}"
+        f"_{args.score_method}_{args.sparsity_ratio_granularity}")
     runner = Runner(args.output_dir, job_id)
-    pruner_cfg = dict(
-        stack_specs=stack_specs,
-        sparsity_ratio_granularity=args.sparsity_ratio_granularity,
-        max_sparsity_per_layer=args.max_sparsity_per_layer,
-        score_method=args.score_method,
-        num_data_first_stage=args.num_data_first_stage,
-        num_noise=args.num_noise,
-        noise_eps=args.noise_eps,
-        noise_mode=args.noise_mode,
-        mezo_ensemble=(None if args.mezo_ensemble is None
-                       else bool(args.mezo_ensemble)),
-        sparsity_dict=args.sparsity_dict,
-        prune_n=prune_n,
-        prune_m=prune_m,
-        seed=args.seed,
-    )
+    if args.is_global:
+        # the global pruners' own configuration (cli/prune.py:674-680): no
+        # --num_samples, so they score the first 64 samples
+        pruner_cfg = dict(
+            stack_specs=stack_specs or None, prune_spec=args.prune_spec,
+            is_global=True, iteration=args.iteration, num_noise=args.num_noise,
+            noise_eps=args.noise_eps, noise_mode=args.noise_mode, seed=args.seed)
+    else:
+        pruner_cfg = dict(
+            stack_specs=stack_specs,
+            prune_spec=args.prune_spec,
+            sparsity_ratio_granularity=args.sparsity_ratio_granularity,
+            max_sparsity_per_layer=args.max_sparsity_per_layer,
+            score_method=args.score_method,
+            num_data_first_stage=args.num_data_first_stage,
+            num_noise=args.num_noise,
+            noise_eps=args.noise_eps,
+            noise_mode=args.noise_mode,
+            mezo_ensemble=(None if args.mezo_ensemble is None
+                           else bool(args.mezo_ensemble)),
+            sparsity_dict=args.sparsity_dict,
+            prune_per_model=args.prune_per_model,
+            prune_n=prune_n,
+            prune_m=prune_m,
+            hessian_bf16=args.hessian_bf16,
+            seed=args.seed,
+        )
     t0 = time.time()
     pruner = load_pruner(args.pruning_method, adapter, batch, num_microbatches,
                          pruner_cfg)
+    if args.coarse_only:
+        specs = [s for s in stack_specs.values() if s]
+        ratio = parse_prune_spec(specs[0] if specs else args.prune_spec).sparsity
+        with torch.no_grad():
+            sdict = pruner.get_sparsity(ratio, args.sparsity_ratio_granularity)
+        result = {
+            "job_id": job_id,
+            "wall_clock_s": round(time.time() - t0, 1),
+            "sparsity_dict": runner.save_sparsity_dict(sdict),
+        }
+        print(json.dumps(result))
+        return result
     with torch.no_grad():
         model, sparsity_dict = pruner.prune()
     if device.type == "cuda":
@@ -219,8 +300,13 @@ def main(argv=None) -> Dict[str, Any]:
         "phase_times": dict(pruner.phase_times),
         "peak_gib": peak,
     }
+    if args.save_pruned_model:
+        ts = time.time()
+        result["pth"] = runner.save_pruned_torch(export_state_dict(model), job_id)
+        result["pth_write_s"] = time.time() - ts
     print(json.dumps(result))
-    return {**result, "leaf_scores": dict(pruner.leaf_scores), "model": model}
+    return {**result, "leaf_scores": dict(pruner.leaf_scores), "model": model,
+            "pruner": pruner}
 
 
 if __name__ == "__main__":

@@ -195,4 +195,7 @@ def make_adapter(model: Blip2T5) -> ModelAdapter:
         loss_fn=lambda m, batch: m.per_sample_loss(batch),
         stacks=stacks,
         build_mezo_plans=build_mezo_plans,
+        # blip2.py:281-285: both T5 stacks belong to one submodel
+        model_prefixes={stacks[0].name: "visual_encoder",
+                        stacks[1].name: "t5_model", stacks[2].name: "t5_model"},
     )

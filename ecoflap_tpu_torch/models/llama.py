@@ -381,4 +381,5 @@ def make_adapter(model: LlamaForCausalLM) -> ModelAdapter:
                                                    batch.get("attn_mask")),
         stacks=[stack],
         build_mezo_plans=build_mezo_plans,
+        model_prefixes={stack.name: "model"},
     )

@@ -9,12 +9,14 @@ plans for the zeroth-order stage.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from torch import nn
 
 from ecoflap_tpu_torch.pruning.targets import WeightTarget
+
+GRANULARITIES = ("layer", "block", "model")
 
 
 @dataclass
@@ -44,6 +46,9 @@ class ModelAdapter:
     stacks: List[StackSpec]
     # (model, batch) -> list of suffix plans for the MeZO stage
     build_mezo_plans: Optional[Callable[..., list]] = None
+    # submodel prefix per stack, for ``model`` granularity and
+    # prune_per_model, e.g. {"visual_encoder.blocks": "visual_encoder"}
+    model_prefixes: Dict[str, str] = field(default_factory=dict)
 
     def targets(self) -> List[WeightTarget]:
         """Every prunable weight in the JAX order: stack, block, linear."""
@@ -53,11 +58,22 @@ class ModelAdapter:
                 for local in s.linear_names]
 
     def group_mapping(self, granularity: Optional[str]) -> Dict[str, str]:
-        """{weight key: group}: none for ``None`` (uniform sparsity), the
-        key's block for ``"block"`` (wanda_pruner.py:292-324, 743-776)."""
+        """{weight key: group} (adapter.py:138-157; wanda_pruner.py:292-324,
+        743-776): none for ``None`` (uniform sparsity); for ``"layer"`` the
+        key itself, for ``"block"`` the key's block, for ``"model"`` its
+        stack's submodel prefix (the stack name's first part if the adapter
+        gives none)."""
         if granularity is None:
             return {}
-        if granularity != "block":
-            raise NotImplementedError(
-                f"sparsity_ratio_granularity={granularity!r} is not ported yet")
-        return {t.name: f"{t.stack.name}.{t.block_index}" for t in self.targets()}
+        if granularity not in GRANULARITIES:
+            raise ValueError(f"unknown sparsity_ratio_granularity {granularity!r}")
+        mapping: Dict[str, str] = {}
+        for t in self.targets():
+            if granularity == "layer":
+                mapping[t.name] = t.name
+            elif granularity == "block":
+                mapping[t.name] = f"{t.stack.name}.{t.block_index}"
+            else:
+                mapping[t.name] = self.model_prefixes.get(
+                    t.stack.name, t.stack.name.split(".")[0])
+        return mapping

@@ -18,6 +18,10 @@ its microbatch count, as the JAX package's fine stage does by default
 2048 tokens in one forward hold two float32 copies of the ``down_proj`` input
 alone, 11.5 GB each.
 
+``collect="hessian_bf16"`` (SparseGPT only; engine.py:110-124, 666-690)
+sums each X^T X over the chunks in float32 as ``"hessian"`` does and rounds
+the finished sum once to bf16; the sweep widens it back to float32.
+
 SparseGPT sweeps a block's same-shape linears together
 (``sparsegpt_prune_weight_group``; T5's q/k/v/o and wi_0/wi_1) unless
 ``sparsegpt_group=False``, the JAX package's ``ECOFLAP_SPARSEGPT_GROUP=0``.
@@ -113,17 +117,26 @@ def stream_prune_stack(
     prune_m: int = 0,
     sparsegpt_group: bool = True,
     times: Optional[Dict[str, float]] = None,
+    collect: Optional[str] = None,
 ) -> nn.Module:
     """Prune one stack of ``model`` in place with the local ``method``
     (``"wanda"`` or ``"sparsegpt"``), ``num_chunks`` forwards per pass (the
     count must divide the batch). ``prune_n``:``prune_m`` > 0 selects n:m
-    masks. ``times``, when given, receives the seconds of the statistics
-    passes (``collect_s``), the pruning (``prune_s``; for SparseGPT it holds
-    ``prepare_hinv_s`` and ``sweep_s``) and the re-forwards
-    (``reforward_s``), each after a device synchronise."""
+    masks. ``collect`` is the statistic: ``"wanda"`` (Wanda's default),
+    ``"hessian"`` (SparseGPT's) or ``"hessian_bf16"``. ``times``, when
+    given, receives the seconds of the statistics passes (``collect_s``),
+    the pruning (``prune_s``; for SparseGPT it holds ``prepare_hinv_s`` and
+    ``sweep_s``) and the re-forwards (``reforward_s``), each after a device
+    synchronise."""
     if method not in LOCAL_METHODS:
         raise ValueError(f"unknown local method {method!r}")
     sparsegpt = method == "sparsegpt"
+    collect = collect or ("hessian" if sparsegpt else "wanda")
+    if collect not in (("hessian", "hessian_bf16") if sparsegpt else ("wanda",)):
+        raise ValueError(f"collect={collect!r} does not serve method {method!r}")
+    out_bf16 = collect == "hessian_bf16"
+    if out_bf16:
+        collect = "hessian"
     if sparsegpt:
         prune_weight, prune_group = make_sparsegpt_prune_fns(
             prune_n=prune_n, prune_m=prune_m)
@@ -152,7 +165,6 @@ def stream_prune_stack(
         times[key] = times.get(key, 0.0) + now - since
         return now
 
-    collect = "hessian" if sparsegpt else "wanda"
     blocks = stack.blocks(model)
     ts = time.time()
     for i in range(stack.num_blocks):
@@ -163,6 +175,8 @@ def stream_prune_stack(
         for xc, cc in slices:
             _, part = stack.block_forward(block, xc, cc, collect)
             stats = {k: stats[k] + v if k in stats else v for k, v in part.items()}
+        if out_bf16:
+            stats = {k: v.to(torch.bfloat16) for k, v in stats.items()}
         ts = mark("collect_s", ts)
 
         def ratio(local):

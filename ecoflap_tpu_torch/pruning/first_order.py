@@ -1,4 +1,4 @@
-"""First-order importance sums, the gradient variant of the ECoFLaP coarse
+"""First-order importance, the gradient variant of the ECoFLaP coarse
 stage (port of ``first_order_group_sums`` and ``streamed_plan_grad_sums`` in
 ``ecoflap_tpu/pruning/first_order.py``; reference
 ``LayerSparsity.compute_importance_scores``,
@@ -23,14 +23,19 @@ stack that has a suffix plan, per microbatch,
   2. take the cotangent of the stack's output, d mean(finish_fn) / dy;
   3. for blocks L-1 .. 0, recompute the block with grad on its input and on
      its target weights only, and get (g_x, g_W...) from the VJP;
-  4. reduce each g_W to its scalar on the device, into an (L, k)
-     accumulator read back once per stack.
+  4. reduce each g_W to its scalar on the device, into one float32
+     accumulator per target, all read back once at the end.
 
 So no gradient larger than one block's weights ever exists, and the memory
 held is the L block inputs of one microbatch. The JAX package proves these
 sums equal its partitioned ``jax.grad`` default (tests/test_scores.py). Targets
 that no plan matches take one plain backward over the whole loss per
-microbatch (the JAX ``rest`` path). The model is frozen (``build_model``):
+microbatch (the JAX ``rest`` path).
+
+The same two gradient sources feed ``accumulate_gradients`` and
+``first_order_importance`` (first_order.py:35-82, 404-429), which keep
+per-element float32 statistics instead of scalars: the ``Real*`` score
+methods and the global |W|.|G| pruner read them. The model is frozen (``build_model``):
 each target weight takes ``requires_grad`` only for its own backward. Both
 paths enable grad themselves, so they run under a caller's ``no_grad`` (the
 CLI prunes under one).
@@ -79,17 +84,16 @@ def _requiring_grad(tensors: Iterable[torch.Tensor]):
 
 
 @torch.enable_grad()
-def streamed_plan_grad_sums(model: nn.Module, data: Any, num_microbatches: int,
-                            plan: Any, score_compute: str) -> Dict[str, float]:
-    """Summed scalar stats of every linear of one stack, per microbatch,
-    through the per-block VJP (first_order.py:98-203). ``plan`` is a
-    ``SuffixPlan``: its ``stack``, ``finish_fn``, ``base_data`` and
-    ``batch_size`` are read, its MeZO cache is not built. Returns
-    {weight key: sum over microbatches} (not yet divided)."""
+def _streamed_block_grads(model: nn.Module, data: Any, num_microbatches: int,
+                          plan: Any):
+    """Per microbatch, and per block from the last to the first, (block
+    index, the block's target weights, their gradients of the microbatch's
+    mean loss) through the per-block VJP of ``plan``'s stack (its
+    ``stack``, ``finish_fn``, ``base_data`` and ``batch_size`` are read, its
+    MeZO cache is not built). The gradients live until the next item."""
     stack = plan.stack
     blocks = stack.blocks(model)
     batch_size = leading_dim(data)
-    acc: Optional[torch.Tensor] = None  # (L, k) float32 on the device
     for b in range(num_microbatches):
         mb = slice_microbatch(data, b, num_microbatches, batch_size)
         d = slice_microbatch(plan.base_data, b, num_microbatches, plan.batch_size)
@@ -102,7 +106,6 @@ def streamed_plan_grad_sums(model: nn.Module, data: Any, num_microbatches: int,
         y = x.requires_grad_(True)
         (g,) = torch.autograd.grad(plan.finish_fn(model, y, d).mean(), y)
         del y, x
-        per_block: List[Optional[torch.Tensor]] = [None] * stack.num_blocks
         for i in range(stack.num_blocks - 1, -1, -1):
             ws = [blocks[i].get_submodule(ln).weight for ln in stack.linear_names]
             x_in = xs[i]
@@ -113,36 +116,50 @@ def streamed_plan_grad_sums(model: nn.Module, data: Any, num_microbatches: int,
                 out, _ = stack.block_forward(blocks[i], x_in, cache, None)
                 grads = torch.autograd.grad(
                     out, ws + ([x_in] if i > 0 else []), grad_outputs=g.to(out.dtype))
-            per_block[i] = torch.stack([
-                _scalar_stat(gw, w, score_compute) for gw, w in zip(grads, ws)])
+            del out, x_in
+            yield i, ws, grads[:len(ws)]
             g = grads[-1] if i > 0 else None
-            del out, grads, x_in
-        batch_stats = torch.stack(per_block)
-        acc = batch_stats if acc is None else acc + batch_stats
-    host = acc.cpu().tolist()  # one readback per stack
-    return {stack.weight_key(i, ln): host[i][j]
-            for i in range(stack.num_blocks)
-            for j, ln in enumerate(stack.linear_names)}
+            del grads
 
 
 @torch.enable_grad()
-def _rest_grad_sums(loss_fn: LossFn, model: nn.Module, data: Any,
-                    num_microbatches: int, targets: Sequence[WeightTarget],
-                    score_compute: str) -> Dict[str, float]:
-    """Targets outside every plan: one backward of the whole mean loss per
-    microbatch, with grad on those targets' weights only."""
+def _rest_grads(loss_fn: LossFn, model: nn.Module, data: Any,
+                num_microbatches: int, targets: Sequence[WeightTarget]):
+    """Targets outside every plan: per microbatch, (their weights, their
+    gradients) from one backward of the whole mean loss, with grad on those
+    weights only."""
     ws = [t.weight(model) for t in targets]
     batch_size = leading_dim(data)
-    acc = None
-    with _requiring_grad(ws):
-        for b in range(num_microbatches):
-            mb = slice_microbatch(data, b, num_microbatches, batch_size)
+    for b in range(num_microbatches):
+        mb = slice_microbatch(data, b, num_microbatches, batch_size)
+        with _requiring_grad(ws):
             grads = torch.autograd.grad(loss_fn(model, mb).mean(), ws)
-            stats = torch.stack([_scalar_stat(g, w, score_compute)
-                                 for g, w in zip(grads, ws)])
-            acc = stats if acc is None else acc + stats
-            del grads
-    return dict(zip((t.name for t in targets), acc.cpu().tolist()))
+        yield ws, grads
+
+
+def _target_grads(loss_fn: LossFn, model: nn.Module, data: Any,
+                  num_microbatches: int, targets: Sequence[WeightTarget],
+                  plans: Optional[Sequence[Any]]):
+    """(target name, weight, gradient of the microbatch's mean loss) for
+    every target and microbatch: each stack that a plan matches through
+    its per-block VJP, the other targets through whole-loss backwards. Per
+    target, the microbatches come in order."""
+    wanted = {t.name for t in targets}
+    rest = list(targets)
+    for plan in plans or ():
+        if not any(plan.match(t.name) for t in rest):
+            continue
+        stack = plan.stack
+        for i, ws, grads in _streamed_block_grads(model, data, num_microbatches, plan):
+            for local, w, g in zip(stack.linear_names, ws, grads):
+                name = stack.weight_key(i, local)
+                if name in wanted:
+                    yield name, w, g
+        rest = [t for t in rest if not plan.match(t.name)]
+    if rest:
+        for ws, grads in _rest_grads(loss_fn, model, data, num_microbatches, rest):
+            for t, w, g in zip(rest, ws, grads):
+                yield t.name, w, g
 
 
 def first_order_group_sums(
@@ -172,17 +189,66 @@ def first_order_group_sums(
                          f"expected one of {SCORE_COMPUTES}")
     if num_microbatches < 1:
         raise ValueError("no calibration microbatches")
-    names = {t.name for t in targets}
-    sums: Dict[str, float] = {}
-    rest = list(targets)
-    for plan in plans or ():
-        if not any(plan.match(t.name) for t in rest):
-            continue
-        streamed = streamed_plan_grad_sums(model, data, num_microbatches, plan,
-                                           score_compute)
-        sums.update({k: v for k, v in streamed.items() if k in names})
-        rest = [t for t in rest if not plan.match(t.name)]
-    if rest:
-        sums.update(_rest_grad_sums(loss_fn, model, data, num_microbatches, rest,
-                                    score_compute))
-    return {t.name: sums[t.name] / num_microbatches for t in targets}
+    acc: Dict[str, torch.Tensor] = {}  # float32 scalars on the device
+    for name, w, g in _target_grads(loss_fn, model, data, num_microbatches, targets,
+                                    plans):
+        stat = _scalar_stat(g, w, score_compute)
+        acc[name] = acc[name] + stat if name in acc else stat
+    host = torch.stack([acc[t.name] for t in targets]).cpu().tolist()  # one readback
+    return {t.name: v / num_microbatches for t, v in zip(targets, host)}
+
+
+def accumulate_gradients(
+    loss_fn: LossFn,
+    model: nn.Module,
+    data: Any,
+    num_microbatches: int,
+    targets: List[WeightTarget],
+    square: bool = False,
+    plans: Optional[Sequence[Any]] = None,
+) -> Dict[str, torch.Tensor]:
+    """Per-target gradient statistics (first_order.py:35-82): the sum over
+    microbatches of |g| (or g^2 when ``square``), g the gradient of the
+    microbatch's mean loss, divided by the microbatch count; float32 tensors
+    of the weights' shapes on their device. ``plans`` route their stacks
+    through the per-block VJP, as in ``first_order_group_sums``, so no
+    gradient larger than one block's weights exists beside the float32
+    accumulators."""
+    if num_microbatches < 1:
+        raise ValueError("no calibration microbatches")
+    acc: Dict[str, torch.Tensor] = {}
+    for name, _, g in _target_grads(loss_fn, model, data, num_microbatches, targets,
+                                    plans):
+        g = g.to(torch.float32)
+        g = g * g if square else g.abs()
+        if name in acc:
+            acc[name].add_(g)
+        else:
+            acc[name] = g
+    return {t.name: acc[t.name].div_(num_microbatches) for t in targets}
+
+
+def first_order_importance(
+    loss_fn: LossFn,
+    model: nn.Module,
+    data: Any,
+    num_microbatches: int,
+    targets: List[WeightTarget],
+    score_compute: str = "GradMagAbs",
+    plans: Optional[Sequence[Any]] = None,
+) -> Dict[str, torch.Tensor]:
+    """Per-target, per-element importance (first_order.py:404-429), float32:
+    |W| |G| (GradMagAbs), W^2 G (GradMagSquare) or |G| (GradOnly), with G
+    from ``accumulate_gradients`` (|g| sums, or g^2 sums for
+    GradMagSquare). Each importance is built in its accumulator's storage."""
+    if score_compute not in SCORE_COMPUTES:
+        raise ValueError(f"unknown first-order score method {score_compute!r}; "
+                         f"expected one of {SCORE_COMPUTES}")
+    square = score_compute == "GradMagSquare"
+    grads = accumulate_gradients(loss_fn, model, data, num_microbatches, targets,
+                                 square=square, plans=plans)
+    if score_compute != "GradOnly":  # G is already nonnegative
+        for t in targets:
+            w = t.weight(model).to(torch.float32)
+            grads[t.name].mul_(w * w if square else w.abs())
+    return grads

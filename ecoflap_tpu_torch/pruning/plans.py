@@ -12,7 +12,7 @@ so ``mezo_leaf_scores`` reads every plan's ``data`` before it perturbs
 anything (plans.py:148-151).
 
 First-order scoring reads only ``stack``, ``finish_fn``, ``base_data`` and
-``batch_size`` (``first_order.streamed_plan_grad_sums``): it prepares each
+``batch_size`` (``first_order._streamed_block_grads``): it prepares each
 microbatch's stack inputs itself and never builds the rolling cache.
 
 The lane ensemble (``lane_paths``, ``lane_losses``; port of

@@ -1,18 +1,21 @@
 """``TwoStagePruner``: ECoFLaP's coarse sparsity allocation + a local
-method, Wanda or SparseGPT (port of ``ecoflap_tpu/pruning/pruners.py``;
-reference ``BLIPT5LayerWandaPruner``, wanda_pruner.py:660-876, and the
-SparseGPT pruners).
+method, Wanda or SparseGPT; ``GlobalPruner``: the global-mask baselines
+(port of ``ecoflap_tpu/pruning/pruners.py``; reference
+``BLIPT5LayerWandaPruner``, wanda_pruner.py:660-876, the SparseGPT pruners,
+and global_pruner.py:56-244).
 
 Registered under the reference names ``blipt5_wanda_pruner`` and
 ``llama_wanda_pruner`` (``TwoStagePruner``), ``blipt5_sparsegpt_pruner`` and
-``llama_sparsegpt_pruner`` (``SparseGPTPruner``), as the JAX package
-registers its ``WandaPruner`` and ``SparseGPTPruner``.
+``llama_sparsegpt_pruner`` (``SparseGPTPruner``),
+``blipt5_global_mag_pruner`` and ``llama_magnitude_pruner`` (magnitude),
+``blipt5_global_gradmagabs_pruner`` (|W| |G|) and
+``blipt5_global_mezo_pruner`` (MeZO), as the JAX package registers them.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, Mapping, Optional, Union
+from typing import Any, Dict, List, Mapping, Optional, Union
 
 import torch
 
@@ -22,7 +25,13 @@ from ecoflap_tpu_torch.core.spec import parse_prune_spec
 from ecoflap_tpu_torch.pruning.adapter import ModelAdapter
 from ecoflap_tpu_torch.pruning.allocator import UniformSparsity
 from ecoflap_tpu_torch.pruning.engine import stream_prune_stack
-from ecoflap_tpu_torch.pruning.mezo import NoiseFn
+from ecoflap_tpu_torch.pruning.first_order import first_order_importance
+from ecoflap_tpu_torch.pruning.masks import (
+    global_mask,
+    iterative_sparsity_schedule,
+    layerwise_mask,
+)
+from ecoflap_tpu_torch.pruning.mezo import NoiseFn, mezo_leaf_scores
 from ecoflap_tpu_torch.pruning.plans import leading_dim
 from ecoflap_tpu_torch.pruning.sparsity import compute_layer_sparsity
 from ecoflap_tpu_torch.runners.runner import global_sparsity, read_flat_yaml
@@ -42,7 +51,10 @@ class TwoStagePruner:
     2), False by the serial in-place cycle (kernel 1), None as each suffix
     plan chooses (``mezo_leaf_scores``). A given
     ``sparsity_dict`` (a mapping, or the path of a saved YAML) skips the
-    coarse stage. ``prune_n``:``prune_m`` > 0 prunes n:m. ``leaf_scores``
+    coarse stage. ``prune_per_model`` allocates the budget per submodel
+    (``adapter.model_prefixes``). ``prune_n``:``prune_m`` > 0 prunes n:m.
+    ``hessian_bf16`` rounds SparseGPT's summed Gram matrices once to bf16
+    (engine.py). ``leaf_scores``
     receives the coarse stage's per-target scores (MeZO scores, or
     first-order importance sums for ``Grad*`` methods). The fine stage
     forwards one microbatch at a time (engine.py)."""
@@ -65,8 +77,10 @@ class TwoStagePruner:
         noise_mode: str = "per_batch",
         mezo_ensemble: Optional[bool] = None,
         sparsity_dict: Optional[Union[str, Mapping[str, float]]] = None,
+        prune_per_model: bool = False,
         prune_n: int = 0,
         prune_m: int = 0,
+        hessian_bf16: bool = False,
         seed: int = 0,
         noise: Optional[NoiseFn] = None,
         verbose: bool = True,
@@ -85,8 +99,10 @@ class TwoStagePruner:
         self.noise_mode = noise_mode
         self.mezo_ensemble = mezo_ensemble
         self.sparsity_dict = sparsity_dict
+        self.prune_per_model = prune_per_model
         self.prune_n = prune_n
         self.prune_m = prune_m
+        self.hessian_bf16 = hessian_bf16
         self.seed = seed
         self.noise = noise
         self.verbose = verbose
@@ -125,7 +141,9 @@ class TwoStagePruner:
             max_sparsity_per_layer=self.max_sparsity_per_layer,
             score_method=self.score_method, num_noise=self.num_noise,
             noise_eps=self.noise_eps, seed=self.seed, noise_mode=self.noise_mode,
-            ensemble=self.mezo_ensemble, loss_plans=plans,
+            ensemble=self.mezo_ensemble, prune_per_model=self.prune_per_model,
+            per_model_group=list(dict.fromkeys(self.adapter.model_prefixes.values())),
+            loss_plans=plans,
             noise=self.noise, leaf_scores_out=self.leaf_scores,
             verbose=self.verbose)
 
@@ -196,7 +214,9 @@ class TwoStagePruner:
                                verbose=self.verbose,
                                num_chunks=self.num_microbatches,
                                method=self.local_method, prune_n=self.prune_n,
-                               prune_m=self.prune_m, times=split)
+                               prune_m=self.prune_m, times=split,
+                               collect=("hessian_bf16" if self.hessian_bf16
+                                        and self.local_method == "sparsegpt" else None))
             synchronize(dev)
             self.phase_times[f"fine_{stack.name}_s"] = time.time() - ts
             for k, v in (split or {}).items():
@@ -217,7 +237,160 @@ class SparseGPTPruner(TwoStagePruner):
     local_method = "sparsegpt"
 
 
+class GlobalPruner:
+    """The global-mask baselines (pruners.py:523-636; global_pruner.py:56-244).
+    For each step p_i = target^(iteration / i) of the schedule, score every
+    target, zero the scores the last step pruned, and prune to p_i by one
+    threshold over all targets (``is_global``), one per submodel prefix
+    (``is_global`` and ``prune_per_model``), or one per tensor. Scores: ``mag``
+    |W|; ``gradmagabs`` |W| |G| over the first ``num_samples`` samples
+    (first_order.py); ``mezo`` the |MeZO score| of each tensor, a scalar,
+    so whole tensors are kept or dropped, by the serial in-place cycle on
+    the full loss (no suffix plans: kernel 1, 3 launches per target,
+    microbatch and draw). Each weight is multiplied in place by its mask
+    (``w * m``, as the JAX package prunes, so a pruned negative weight is
+    -0.0). Takes and ignores the two-stage pruner's other settings, as the
+    JAX package does for a non-global configuration. ``phase_times`` gets
+    each step's wall and its selection's; ``importance_stats`` each step's
+    float32 importance bytes and non-finite entries; ``leaf_scores`` the
+    last step's MeZO scores."""
+
+    score = "mag"
+
+    def __init__(
+        self,
+        adapter: ModelAdapter,
+        data: Dict[str, torch.Tensor],
+        num_microbatches: int,
+        prune_spec: Optional[str] = None,
+        stack_specs: Optional[Mapping[str, Optional[str]]] = None,
+        is_global: bool = True,
+        prune_per_model: bool = False,
+        iteration: int = 1,
+        num_samples: int = 64,
+        num_noise: int = 1,
+        noise_eps: float = 1e-3,
+        noise_mode: str = "per_batch",
+        seed: int = 0,
+        noise: Optional[NoiseFn] = None,
+        verbose: bool = True,
+        **_: Any,
+    ) -> None:
+        self.adapter = adapter
+        self.data = data
+        self.num_microbatches = num_microbatches
+        self.prune_spec = prune_spec
+        self.stack_specs = dict(stack_specs or {})
+        self.is_global = is_global
+        self.prune_per_model = prune_per_model
+        self.iteration = iteration
+        self.num_samples = num_samples
+        self.num_noise = num_noise
+        self.noise_eps = noise_eps
+        self.noise_mode = noise_mode
+        self.seed = seed
+        self.noise = noise
+        self.verbose = verbose
+        self.leaf_scores: Dict[str, float] = {}
+        self.phase_times: Dict[str, float] = {}
+        self.importance_stats: List[Dict[str, int]] = []
+
+    def _score_data(self):
+        """The first ``num_samples`` samples, rounded down to whole
+        microbatches (pruners.py:562-571)."""
+        total = leading_dim(self.data)
+        bs = max(1, total // self.num_microbatches)
+        num_mb = max(1, min(self.num_samples, total) // bs)
+        return _slice(self.data, num_mb * bs), num_mb
+
+    def _importance(self, targets) -> Dict[str, torch.Tensor]:
+        model = self.adapter.model
+        if self.score == "mag":
+            return {t.name: t.weight(model).to(torch.float32).abs() for t in targets}
+        data, num_mb = self._score_data()
+        if self.score == "gradmagabs":
+            # the suffix plans stream each stack's backward block by block
+            plans = (self.adapter.build_mezo_plans(model, data)
+                     if self.adapter.build_mezo_plans is not None else None)
+            return first_order_importance(self.adapter.loss_fn, model, data, num_mb,
+                                          targets, "GradMagAbs", plans=plans)
+        if self.score == "mezo":
+            scores = mezo_leaf_scores(
+                self.adapter.loss_fn, model, data, num_mb, targets, eps=self.noise_eps,
+                num_noise=self.num_noise, seed=self.seed, noise_mode=self.noise_mode,
+                noise=self.noise)
+            self.leaf_scores = scores
+            dev = next(model.parameters()).device
+            return {k: torch.tensor([abs(v)], dtype=torch.float32, device=dev)
+                    for k, v in scores.items()}
+        raise ValueError(f"unknown global score {self.score!r}")
+
+    def _masks(self, imp: Dict[str, torch.Tensor], p: float) -> Dict[str, torch.Tensor]:
+        if not self.is_global:
+            return layerwise_mask(imp, p)
+        if not self.prune_per_model:
+            return global_mask(imp, p, max_sparsity_per_layer=1.0)
+        masks: Dict[str, torch.Tensor] = {}
+        # both T5 stacks of BLIP-2 share one prefix: visited once (JAX visits
+        # it twice, to the same masks)
+        for prefix in dict.fromkeys(self.adapter.model_prefixes.values()):
+            sub = {k: v for k, v in imp.items() if k.startswith(prefix)}
+            masks.update(global_mask(sub, p, max_sparsity_per_layer=1.0))
+        return masks
+
+    @torch.no_grad()
+    def prune(self):
+        """(model, None), the JAX ``GlobalPruner.prune`` contract."""
+        model = self.adapter.model
+        dev = next(model.parameters()).device
+        targets = self.adapter.targets()
+        spec = self.prune_spec or next(iter(self.stack_specs.values()), None)
+        if spec is None:
+            return model, None
+        self.phase_times = {}
+        self.importance_stats = []
+        masks: Optional[Dict[str, torch.Tensor]] = None
+        for i, p_i in enumerate(iterative_sparsity_schedule(
+                parse_prune_spec(spec).sparsity, self.iteration), start=1):
+            t0 = time.time()
+            imp = self._importance(targets)
+            if masks is not None:
+                for k, v in imp.items():
+                    v.mul_(masks[k])
+            self.importance_stats.append({
+                "bytes": sum(v.numel() * v.element_size() for v in imp.values()),
+                "nonfinite": int(sum((~torch.isfinite(v)).sum() for v in imp.values()))})
+            ts = time.time()
+            masks = self._masks(imp, p_i)
+            del imp
+            synchronize(dev)
+            self.phase_times[f"iteration_{i}_select_s"] = time.time() - ts
+            for t in targets:
+                t.weight(model).mul_(masks[t.name])
+            synchronize(dev)
+            self.phase_times[f"iteration_{i}_s"] = time.time() - t0
+            if self.verbose:
+                print(f"target sparsity: {p_i:.4f}")
+        return model, None
+
+
+class GlobalMagPruner(GlobalPruner):
+    score = "mag"
+
+
+class GlobalGradMagAbsPruner(GlobalPruner):
+    score = "gradmagabs"
+
+
+class GlobalMeZoPruner(GlobalPruner):
+    score = "mezo"
+
+
 registry.register("pruner", "blipt5_wanda_pruner", TwoStagePruner)
 registry.register("pruner", "llama_wanda_pruner", TwoStagePruner)
 registry.register("pruner", "blipt5_sparsegpt_pruner", SparseGPTPruner)
 registry.register("pruner", "llama_sparsegpt_pruner", SparseGPTPruner)
+registry.register("pruner", "blipt5_global_mag_pruner", GlobalMagPruner)
+registry.register("pruner", "blipt5_global_gradmagabs_pruner", GlobalGradMagAbsPruner)
+registry.register("pruner", "blipt5_global_mezo_pruner", GlobalMeZoPruner)
+registry.register("pruner", "llama_magnitude_pruner", GlobalMagPruner)

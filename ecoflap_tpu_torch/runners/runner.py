@@ -1,8 +1,8 @@
-"""Pruning artifacts (port of the two savers of
+"""Pruning artifacts (port of the three savers of
 ``ecoflap_tpu/runners/runner.py``; reference evaluate_blip.py:438-472):
-``sparsity_dict/<job>.yaml`` under the reference keys and
+``sparsity_dict/<job>.yaml`` under the reference keys,
 ``training_statistics/<job>.yaml`` with the wall clock and the card's peak
-memory.
+memory, and the pruned model as ``pruned_checkpoint/<job>.pth``.
 
 The files are flat ``key: value`` YAML written as PyYAML's ``safe_dump``
 writes them (sorted keys, floats with a dot), so no YAML package is needed.
@@ -14,6 +14,8 @@ import os
 from typing import Any, Dict, Mapping, Optional
 
 import torch
+
+from ecoflap_tpu_torch.utils.checkpoint import save_torch_checkpoint
 
 
 def _yaml_scalar(v: Any) -> str:
@@ -59,6 +61,16 @@ class Runner:
             return None
         path = self._path("sparsity_dict")
         write_flat_yaml(path, {k: float(v) for k, v in sparsity_dict.items()})
+        return path
+
+    def save_pruned_torch(self, state_dict: Mapping[str, torch.Tensor],
+                          name: Optional[str] = None) -> str:
+        """The reference-named ``.pth`` under ``pruned_checkpoint/``
+        (runner.py:117-126)."""
+        d = os.path.join(self.output_dir, "pruned_checkpoint")
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, f"{name or self.job_id}.pth")
+        save_torch_checkpoint(state_dict, path)
         return path
 
     def save_training_statistics(self, wall_clock_s: float,

@@ -73,13 +73,20 @@ def test_scoring_leaves_the_model_frozen_and_runs_under_no_grad():
 
 
 def test_unported_and_unknown_methods_raise():
+    """Every score method of the JAX package is ported now (the ``Real*``
+    ones are held against JAX in tests/test_torch_granularity.py), so what
+    is left to raise is what the JAX package refuses: a ``Real`` method
+    over an unknown first-order score, and unknown methods."""
     _, _, tad, batch = first_order_setup("llama", NUM_MB)
     tb = to_torch(batch)
     mapping = tad.group_mapping("block")
-    for method in ("Real-GradMagAbs_sum", "RealMag_sum"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for method in ("RealMag_sum", "Real-GradMag_sum"):
+        with pytest.raises(ValueError, match="first-order"):
             compute_layer_sparsity(tad.loss_fn, tad.model, tb, NUM_MB, tad.targets(),
                                    0.5, mapping, score_method=method, verbose=False)
+    with pytest.raises(ValueError, match="unknown score method"):
+        compute_layer_sparsity(tad.loss_fn, tad.model, tb, NUM_MB, tad.targets(),
+                               0.5, mapping, score_method="Magnitude_sum", verbose=False)
     with pytest.raises(ValueError, match="first-order"):
         tsums(tad.loss_fn, tad.model, tb, NUM_MB, tad.targets(), "GradMag")
 
