@@ -12,8 +12,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      FlanT5-XL weight shapes plus a ragged one, the in-place one also at
      the LLaMA-7B shapes of phase 5, in bf16 and f32; the causal
      flash-attention forward (with and without its LSE output) and backward
-     kernels at the LLaMA calibration shape, a short one and one whose last
-     128-row tile is half full (S % 128 == 64), their causality, strided
+     kernels at the LLaMA calibration shape, phase 13's window at batch 1,
+     a short one and one whose last 128-row tile is half full (S % 128 == 64), their causality, strided
      inputs, the backward's determinism, and refusals of what they do not
      take;
   3. kernel timing (CUDA events) beside each kernel's bound, its plain
@@ -64,9 +64,30 @@ Phases, in order; any failure raises and the exit code is non-zero:
  11. the BLIP-2 global |W| |G| path: the flags of
      scripts/blip2/iterative_global_gradient.py (3 steps of 8 backward
      microbatches), counting kernel launches (none), and three full-loss
-     forwards timed for the global MeZO baseline's estimate.
-Kernel launch counts are set to 0 just before each of phases 4 to 8, 10 and
-11 and read just after it. The line before the last holds the card's
+     forwards timed for the global MeZO baseline's estimate;
+ 12. the BLIP-2 evaluation path: ``ecoflap_tpu_torch.cli.evaluate.main``
+     evaluates BLIP-2 FlanT5-XL at full width and depth on synthetic VQA (3
+     batches of 8, beam 5, 10 new tokens, length penalty -1: the
+     reference's VQA decode point, blip2_t5.py:420-428), counting kernel
+     launches (none: BLIP-2's attention is naive); then the same weights
+     (the seed's) through ``Blip2T5.generate`` on batch 0 at that point
+     and at the captioning point (beam 5, 30 tokens, length penalty 1.0):
+     valid ids and pad after each row's first EOS, in the tokens of the
+     CLI's three batches too, batch 0 the same in the CLI and three times
+     on the rebuilt model, the decode loop's ms per step beside its
+     weight-read bound, its CUDA launches and device time per step
+     (profiler), and the peak;
+ 13. the LLaMA evaluation path: the same entry point's WikiText perplexity
+     of LLaMA-7B at full width and depth (the JAX CLI's synthetic stream:
+     one window of 2048, one forward at batch 1), then 64 windows through
+     the same task and ``Runner.evaluate`` at batch 8; finite, one flash
+     forward launch per block and forward, no other kernel.
+Phase 9 also holds tiny BLIP-2's generated tokens (f32, greedy and beam 5
+at the VQA and captioning points) on the card against the CPU; tiny BLIP-2
+in bf16 with rows that finish: the decode step's float32 logits on the card
+against the CPU's, and the card's tokens' validity; and the small LLaMA's
+bf16 perplexity on the card (flash kernel) against f32 on the CPU. Kernel launch counts are set to 0 just before each of phases 4 to 8
+and 10 to 13 and read just after it. The line before the last holds the card's
 ``name, power.limit``; the last is ``{"ok": true, "device": {...}}``.
 """
 
@@ -121,10 +142,13 @@ LLAMA_FO_FIRST_STAGE = 32  # the first-order path scores all 32, as the referenc
 BLIP2_FO_FIRST_STAGE = 32  # the reference's ecoflap_first.py scores 128
 Z_ULP_TOL = 4  # CUDA logf/cosf vs PyTorch's: a few ulp at most
 BF16_MISMATCH_SHARE = 1e-4  # bf16 outputs a z ulp away from a rounding tie
-# (B, H, S, Dh): the coarse and fine chunk shape of LLaMA-7B, a short one, and
-# one whose last 128-row tile is half full (S % 128 == 64: the tensor maps'
-# bounds zero-fill it and its rows past S are never stored)
-FLASH_SHAPES = [(8, 32, 2048, 128), (1, 32, 512, 128), (2, 8, 576, 128)]
+# (B, H, S, Dh): the coarse and fine chunk shape of LLaMA-7B (also phase 13's
+# batches of 8 windows), phase 13's one window at batch 1 (the evaluate CLI's
+# synthetic stream), a short one, and one whose last 128-row tile is half
+# full (S % 128 == 64: the tensor maps' bounds zero-fill it and its rows past
+# S are never stored)
+FLASH_SHAPES = [(8, 32, 2048, 128), (1, 32, 2048, 128), (1, 32, 512, 128),
+                (2, 8, 576, 128)]
 # kernel (bf16 out) vs plain version (float32 throughout, one rounding to
 # bf16). The output rounding alone is half a bf16 ulp, 2^-9 relative, on
 # either side, so two roundings can sit one ulp (2^-8 = 3.9e-3 relative)
@@ -242,6 +266,33 @@ REAL_BF16_SHARE_TOL = 3e-2
 # the whole model's masks are held within 1e-2 and its weights reported
 SPARSEGPT_BF16_FIRST_REL_L2 = 1e-3
 SPARSEGPT_BF16_MASK_SHARE = 1e-2
+# phases 12-13, the evaluation paths: the reference's decode points
+# (blip2_t5.py:420-428 VQA predict_answers, :352-364 captioning) and the JAX
+# CLI's synthetic sizes (cli/evaluate.py: 3 batches separate the first from
+# the steady rate; a stream of 64 x 32 tokens)
+EVAL_BATCHES = 3
+VQA_POINT = dict(max_new_tokens=10, num_beams=5, length_penalty=-1.0)
+CAPTION_POINT = dict(max_new_tokens=30, num_beams=5, length_penalty=1.0)
+EVAL_STREAM_TOKENS = 64 * 32
+# phase 13's second stream, through Runner.evaluate and PerplexityTask: 64
+# windows of 2048, eight forwards at batch 8 (the reference evaluates the
+# whole WikiText-2 test split, whose text and tokenizer are not in the repo)
+EVAL_PPL_WINDOWS = 64
+# tiny BLIP-2's EOS row of the lm_head raised by this much: most rows then
+# finish before the last step, so beam search's finished set is exercised
+EOS_BOOST = 0.3
+# tiny BLIP-2 in bf16, the decode step's float32 logits on the card against
+# the CPU's from the same encoder output and tokens. Both sides take the same
+# bf16 values and sum each product in float32, in another order. At tiny T5's
+# widths (32 and 64 terms a sum) a product of two bf16 values is exact in
+# float32 and so are most of the sums, so the two sides round alike to bf16
+# and part only at float32 rounding: 5.1e-8 relative L2 on the H100 (NVIDIA
+# H100 80GB HBM3, 700.00 W). The gate is 1e-3, set from that reading: a sum
+# rounded to bf16 one ulp apart moves the logits by a few 1e-4, while a bf16
+# lm_head product (logits rounded to bf16: 2^-9 relative, 1.1e-3 RMS) or a
+# step that attends to the wrong cache rows moves them further (a logit
+# rounded to bf16 also fails the float32 check of the step).
+BF16_STEP_LOGITS_REL = 1e-3
 
 
 def log(*a):
@@ -759,6 +810,13 @@ def small_reference_check(torch):
     return lerr, serr
 
 
+def small_llama_config(llama):
+    """The small LLaMA of phase 9's card-vs-CPU checks: 2 layers, d_model
+    256, 2 heads of 128 (flash-eligible), S 512, vocab 512."""
+    return llama.LlamaConfig(vocab_size=512, d_model=256, num_layers=2, num_heads=2,
+                             num_kv_heads=2, d_ff=688, max_seq_len=512)
+
+
 def small_llama_check(torch):
     """A small LLaMA (2 layers, d_model 256, 2 heads of 128, S 512, vocab
     512): bf16 on the card, where attention is the flash kernel, against
@@ -769,8 +827,7 @@ def small_llama_check(torch):
     from ecoflap_tpu_torch.models import llama
     from ecoflap_tpu_torch.ops import attention as A
 
-    cfg = llama.LlamaConfig(vocab_size=512, d_model=256, num_layers=2, num_heads=2,
-                            num_kv_heads=2, d_ff=688, max_seq_len=512)
+    cfg = small_llama_config(llama)
     cpu_model = llama.build_model(cfg, device="cpu", dtype=torch.float32, seed=3)
     ids = cal.build_lm_calibration_batch(
         cal.synthetic_token_stream(4, 512, cfg.vocab_size, 0), 4, 512, 0)["input_ids"]
@@ -874,8 +931,7 @@ def ensemble_vs_serial_checks(torch, P, small_blip2):
 
     ad, batch, targets = small_blip2
     out = {"small BLIP-2": (ensemble_gap(P, ad, batch, targets), len(targets))}
-    cfg = llama.LlamaConfig(vocab_size=512, d_model=256, num_layers=2, num_heads=2,
-                            num_kv_heads=2, d_ff=688, max_seq_len=512)
+    cfg = small_llama_config(llama)
     model = llama.build_model(cfg, device="cuda", dtype=torch.float32, seed=3)
     ids = cal.build_lm_calibration_batch(
         cal.synthetic_token_stream(4, 512, cfg.vocab_size, 0), 4, 512, 0)["input_ids"]
@@ -1199,8 +1255,7 @@ def small_llama_real_check(torch, A):
     from ecoflap_tpu_torch.models import llama
     from ecoflap_tpu_torch.pruning.loader import load_pruner
 
-    cfg = llama.LlamaConfig(vocab_size=512, d_model=256, num_layers=2, num_heads=2,
-                            num_kv_heads=2, d_ff=688, max_seq_len=512)
+    cfg = small_llama_config(llama)
     cpu_model = llama.build_model(cfg, device="cpu", dtype=torch.float32, seed=3)
     ids = cal.build_lm_calibration_batch(
         cal.synthetic_token_stream(4, 512, cfg.vocab_size, 0), 4, 512, 0)["input_ids"]
@@ -1296,6 +1351,309 @@ def full_loss_forward_ms(torch, res):
     ad = blip2.make_adapter(res["model"])
     with torch.no_grad():
         return time_cuda(torch, lambda: ad.loss_fn(ad.model, batch).mean(), 3)
+
+
+def check_tokens(torch, toks, vocab, what):
+    """Generated ids: every one in [0, vocab), only pad (0) after a row's
+    first EOS (1). Returns the number of rows that finished."""
+    assert toks.dtype == torch.long, (what, toks.dtype)
+    assert bool(((toks >= 0) & (toks < vocab)).all()), f"{what}: an id outside the vocab"
+    finished = 0
+    for row in toks.cpu().tolist():
+        if 1 in row:
+            finished += 1
+            assert set(row[row.index(1) + 1:]) <= {0}, f"{what}: not pad after EOS"
+    return finished
+
+
+def decode_step_bytes(t5):
+    """Weight bytes one decode step reads: every decoder weight but the
+    cross K/V (made once a sequence) and the relative-position table (read
+    once a call), and the lm_head."""
+    n = t5.lm_head.weight.numel() * t5.lm_head.weight.element_size()
+    for name, p in t5.decoder.named_parameters():
+        if not re.search(r"EncDecAttention\.[kv]\.|relative_attention_bias", name):
+            n += p.numel() * p.element_size()
+    return n
+
+
+def decode_loop(torch, model, images, ids, mask, point):
+    """``Blip2T5.generate``'s work with the decode loop alone between two
+    device syncs, run twice on fresh caches (the first warms the allocator
+    and cuBLAS at these shapes) to the same tokens: (tokens, the second
+    loop's seconds, a callable that runs the loop once more)."""
+    import dataclasses
+
+    from ecoflap_tpu_torch.models import generation as G
+
+    t5 = model.t5_model
+    cfg = t5.cfg
+    gen = dataclasses.replace(G.GenerateConfig(**point), bos_token_id=cfg.decoder_start_token_id,
+                              eos_token_id=cfg.eos_token_id, pad_token_id=cfg.pad_token_id)
+    run = G.beam_generate if gen.num_beams > 1 else G.greedy_generate
+    with torch.inference_mode():
+        x, m = model.encoder_inputs(images, ids, mask)
+        enc = t5.encode_embeds(x, m)
+
+    def loop():
+        with torch.inference_mode():
+            cache = G.t5_init_cache(t5, enc, m, gen.max_new_tokens, gen.num_beams)
+            step = G.make_t5_step_fn(t5, gen.max_new_tokens, gen.num_beams)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = run(step, cache, images.shape[0], gen, device=images.device)
+            torch.cuda.synchronize()
+            return toks, time.perf_counter() - t0
+
+    first, _ = loop()
+    toks, loop_s = loop()
+    assert torch.equal(first, toks), "the decode loop gives other tokens a second time"
+    return toks, loop_s, loop
+
+
+def profile_launches(torch, fn):
+    """(CUDA kernel launches, device busy ms) of one call of ``fn`` under
+    ``torch.profiler``; the device time is None where the trace holds none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    launches = sum(e.count for e in events if "LaunchKernel" in e.key)
+    busy_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                  for e in events if e.device_type == DeviceType.CUDA)
+    return launches, (busy_us / 1e3 if busy_us else None)
+
+
+def eval_ppl_stream(torch, out_dir):
+    """LLaMA-7B (the CLI's seed and dtype) through ``Runner.evaluate`` and
+    the ``wikitext_ppl`` task over a random stream of EVAL_PPL_WINDOWS
+    windows of 2048 at batch 8. Returns (metrics, wall in s)."""
+    import numpy as np
+
+    from ecoflap_tpu_torch.models import llama
+    from ecoflap_tpu_torch.runners.runner import Runner
+    from ecoflap_tpu_torch.tasks import setup_task
+
+    t0 = time.time()
+    cfg = llama.llama_7b()
+    model = llama.build_model(cfg, device="cuda", dtype=torch.bfloat16, seed=SEED)
+    stream = np.random.default_rng(SEED + 1).integers(
+        2, cfg.vocab_size, size=(EVAL_PPL_WINDOWS * LLAMA_SEQLEN,))
+    task = setup_task("wikitext_ppl", lambda s: llama.perplexity(
+        model, torch.from_numpy(s).cuda(), seqlen=LLAMA_SEQLEN, batch_size=BATCH_SIZE))
+    metrics = Runner(out_dir, "eval_llama_stream").evaluate(task, stream)
+    del model
+    return metrics, time.time() - t0
+
+
+def eval_xl_checks(torch, cli_batch0):
+    """Phase 12's generation checks on the evaluation's model, rebuilt from
+    the CLI's seed (the same weights): batch 0 of the CLI's synthetic data
+    through ``Blip2T5.generate`` at the VQA point and once more through the
+    timed decode loop (the same tokens), then at the captioning point with
+    the real-data branch's empty prompt; per-step time against the weight
+    bound, launches and device time per step. Returns the readings."""
+    import numpy as np
+
+    from ecoflap_tpu_torch.data.calibration import HashTokenizer
+    from ecoflap_tpu_torch.models import blip2
+    from ecoflap_tpu_torch.models.generation import GenerateConfig
+
+    cfg = blip2.blip2_flant5xl()
+    model = blip2.build_model(cfg, device="cuda", dtype=torch.bfloat16, seed=SEED)
+    img = cfg.vit.img_size
+    rng = np.random.default_rng(SEED)  # the CLI's draw of batch 0
+    images = torch.from_numpy(rng.normal(size=(BATCH_SIZE, img, img, 3)).astype(np.float32)).cuda()
+    tok = HashTokenizer(vocab_size=cfg.t5.vocab_size)
+    ids, mask = (torch.from_numpy(a).cuda() for a in tok(
+        [f"question {i}" for i in range(BATCH_SIZE)], max_length=8))
+    vocab = cfg.t5.vocab_size
+    out = {"step_bytes": decode_step_bytes(model.t5_model)}
+    out["bound_ms"] = out["step_bytes"] / HBM_BYTES_PER_S * 1e3
+    api = model.generate(images, ids, mask, GenerateConfig(**VQA_POINT))
+    assert torch.equal(api, cli_batch0), "batch 0 in the CLI and on the rebuilt model differs"
+    toks, loop_s, loop = decode_loop(torch, model, images, ids, mask, VQA_POINT)
+    assert torch.equal(api, toks), "batch 0 through generate and the timed loop differs"
+    out["vqa_finished"] = check_tokens(torch, toks, vocab, "XL VQA")
+    out["vqa_step_ms"] = loop_s / VQA_POINT["max_new_tokens"] * 1e3
+    launches, busy_ms = profile_launches(torch, loop)
+    out["vqa_launches_per_step"] = launches / VQA_POINT["max_new_tokens"]
+    out["vqa_busy_ms_per_step"] = (None if busy_ms is None
+                                   else busy_ms / VQA_POINT["max_new_tokens"])
+    ids, mask = (torch.from_numpy(a).cuda() for a in tok([""] * BATCH_SIZE, max_length=4))
+    toks, loop_s, _ = decode_loop(torch, model, images, ids, mask, CAPTION_POINT)
+    out["caption_finished"] = check_tokens(torch, toks, vocab, "XL captioning")
+    out["caption_step_ms"] = loop_s / CAPTION_POINT["max_new_tokens"] * 1e3
+    del model
+    return out
+
+
+def first_difference_margin(torch, model, images, ids, mask, want, got):
+    """Where two token arrays first differ: (row, step, the top-2 logit
+    margin of the CPU model's teacher-forced decoder on ``want``'s row)."""
+    bad = (want != got).nonzero()
+    r, p = int(bad[0, 0]), int(bad[0, 1])
+    t5 = model.t5_model
+    with torch.no_grad():
+        x, m = model.encoder_inputs(images[r:r + 1], ids[r:r + 1], mask[r:r + 1])
+        enc = t5.encode_embeds(x, m)
+        dec_in = torch.cat([torch.zeros_like(want[r:r + 1, :1]), want[r:r + 1, :-1]], dim=1)
+        top2 = t5.decode(enc, m, dec_in)[0, p].topk(2).values
+    return r, p, (top2[0] - top2[1]).item()
+
+
+def tiny_generate_inputs(torch, cfg):
+    """Eight random images and ragged, right-padded prompts of up to 8 ids,
+    on the CPU, from one seed."""
+    g = torch.Generator().manual_seed(6)
+    n, img = 8, cfg.vit.img_size
+    images = torch.randn(n, img, img, 3, generator=g)
+    mask = (torch.arange(8)[None, :] < torch.randint(3, 9, (n, 1), generator=g)).long()
+    ids = torch.randint(2, cfg.t5.vocab_size, (n, 8), generator=g) * mask
+    return images, ids, mask
+
+
+def teacher_forced_step_logits(torch, t5, enc, mask, toks):
+    """(B, S, V) float32 logits of the cached decode step fed ``toks``
+    shifted right behind decoder_start, one position a call."""
+    from ecoflap_tpu_torch.models import generation as G
+
+    n, steps = toks.shape
+    prev = torch.cat([torch.full_like(toks[:, :1], t5.cfg.decoder_start_token_id),
+                      toks[:, :-1]], dim=1)
+    with torch.inference_mode():
+        cache = G.t5_init_cache(t5, enc, mask, steps, 1)
+        step = G.make_t5_step_fn(t5, steps, 1)
+        out = []
+        for pos in range(steps):
+            logits, cache = step(prev[:, pos], pos, cache)
+            out.append(logits)
+    return torch.stack(out, dim=1)
+
+
+def tiny_blip2_bf16_check(torch):
+    """Tiny BLIP-2 in bf16 with the EOS row of the lm_head raised (rows
+    finish): the code that only bf16 runs (the bf16 lm_head product with
+    float32 output on the card, the probabilities rounded to bf16, the
+    float32 cache of bf16 values). The decode step on the card against the
+    same model's step on the CPU, both fed the CPU's encoder output and the
+    CPU's greedy tokens over the captioning point's 30 steps: float32 logits
+    (not bf16-rounded) within BF16_STEP_LOGITS_REL relative L2. Then beam 5
+    and greedy on the card at both points: ids in the vocab, pad after EOS,
+    rows finished, and how many rows equal the CPU's (reported: bf16 may
+    flip a near-tie). Returns the readings."""
+    import dataclasses
+
+    from ecoflap_tpu_torch.models import blip2
+    from ecoflap_tpu_torch.models import generation as G
+    from ecoflap_tpu_torch.models.generation import GenerateConfig
+
+    cfg = blip2.tiny_config()
+    cpu_model = blip2.build_model(cfg, device="cpu", dtype=torch.float32, seed=3)
+    with torch.no_grad():
+        cpu_model.t5_model.lm_head.weight[cfg.t5.eos_token_id] += EOS_BOOST
+    cpu_model = cpu_model.to(torch.bfloat16)
+    card = copy.deepcopy(cpu_model).to("cuda")
+    images, ids, mask = tiny_generate_inputs(torch, cfg)
+    vocab, steps = cfg.t5.vocab_size, CAPTION_POINT["max_new_tokens"]
+    t5 = cpu_model.t5_model
+    with torch.inference_mode():
+        x, m = cpu_model.encoder_inputs(images, ids, mask)
+        enc = t5.encode_embeds(x, m)
+        gen = dataclasses.replace(GenerateConfig(**dict(CAPTION_POINT, num_beams=1)),
+                                  bos_token_id=cfg.t5.decoder_start_token_id,
+                                  eos_token_id=cfg.t5.eos_token_id,
+                                  pad_token_id=cfg.t5.pad_token_id)
+        toks = G.greedy_generate(G.make_t5_step_fn(t5, steps),
+                                 G.t5_init_cache(t5, enc, m, steps), ids.shape[0], gen,
+                                 device=torch.device("cpu"))
+    want = teacher_forced_step_logits(torch, t5, enc, m, toks)
+    got = teacher_forced_step_logits(torch, card.t5_model, enc.cuda(), m.cuda(),
+                                     toks.cuda()).cpu()
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    # the lm_head's sums stay float32: most logits are no bf16 value
+    off_grid = (got != got.to(torch.bfloat16).to(torch.float32)).float().mean().item()
+    assert off_grid > 0.5, f"bf16 decode step logits rounded to bf16 ({off_grid:.3f})"
+    rel = ((got - want).norm() / want.norm()).item()
+    assert rel < BF16_STEP_LOGITS_REL, f"tiny BLIP-2 bf16 step logits card vs CPU: {rel}"
+    out = {"step_rel_l2": rel, "off_grid": off_grid, "cases": {}}
+    for name, point in (("vqa", VQA_POINT), ("caption", CAPTION_POINT)):
+        for nb in (1, point["num_beams"]):
+            g = GenerateConfig(**dict(point, num_beams=nb))
+            cpu_toks = cpu_model.generate(images, ids, mask, g, use_beam=nb > 1)
+            card_toks = card.generate(images.cuda(), ids.cuda(), mask.cuda(), g,
+                                      use_beam=nb > 1).cpu()
+            case = f"{name} beams {nb}"
+            finished = check_tokens(torch, card_toks, vocab, f"bf16 {case}")
+            # with the EOS row raised, rows must finish: the finished set and
+            # the pad after EOS are what this check is for
+            assert finished > 0, f"tiny BLIP-2 bf16 {case}: no row finished"
+            same = int((card_toks == cpu_toks).all(dim=1).sum())
+            out["cases"][case] = (finished, same)
+    return out
+
+
+def tiny_blip2_generate_check(torch):
+    """Tiny BLIP-2 in f32 from one seed on the card and on the CPU (TF32
+    off): identical tokens, greedy and beam 5, at the VQA and captioning
+    points, at the random init and with the EOS row of the lm_head raised
+    (most rows finish). A difference prints its top-2 logit margin and
+    fails. Returns {case: rows finished}."""
+    from ecoflap_tpu_torch.models import blip2
+    from ecoflap_tpu_torch.models.generation import GenerateConfig
+
+    cfg = blip2.tiny_config()
+    base = blip2.build_model(cfg, device="cpu", dtype=torch.float32, seed=3)
+    images, ids, mask = tiny_generate_inputs(torch, cfg)
+    vocab = cfg.t5.vocab_size
+    out = {}
+    for boost in (0.0, EOS_BOOST):
+        cpu_model = copy.deepcopy(base)
+        with torch.no_grad():
+            cpu_model.t5_model.lm_head.weight[cfg.t5.eos_token_id] += boost
+        card = copy.deepcopy(cpu_model).to("cuda")
+        for name, point in (("vqa", VQA_POINT), ("caption", CAPTION_POINT)):
+            for nb in (1, point["num_beams"]):
+                gen = GenerateConfig(**dict(point, num_beams=nb))
+                want = cpu_model.generate(images, ids, mask, gen, use_beam=nb > 1)
+                got = card.generate(images.cuda(), ids.cuda(), mask.cuda(), gen,
+                                    use_beam=nb > 1).cpu()
+                case = f"{name} beams {nb} EOS +{boost}"
+                if not torch.equal(got, want):
+                    r, p, margin = first_difference_margin(torch, cpu_model, images, ids,
+                                                           mask, want, got)
+                    log(f"tiny BLIP-2 {case}: row {r} differs from step {p}; top-2 "
+                        f"logit margin there on the CPU {margin:.3e}")
+                    raise AssertionError(f"tiny BLIP-2 generate card vs CPU: {case}")
+                out[case] = check_tokens(torch, got, vocab, case)
+    return out
+
+
+def small_llama_ppl_check(torch, A):
+    """The small LLaMA of ``small_llama_check``: ``llama.perplexity`` over
+    5 windows of 512 at batch 2, bf16 on the card (flash kernel, launches
+    counted) against f32 on the CPU, within LLAMA_LOSS_RTOL in log-ppl (the
+    token-mean loss). Returns (relative log-ppl difference, launches)."""
+    from ecoflap_tpu_torch.data import calibration as cal
+    from ecoflap_tpu_torch.models import llama
+
+    cfg = small_llama_config(llama)
+    cpu_model = llama.build_model(cfg, device="cpu", dtype=torch.float32, seed=3)
+    stream = torch.from_numpy(cal.synthetic_token_stream(4, 512, cfg.vocab_size, 0))
+    want = llama.perplexity(cpu_model, stream, seqlen=512, batch_size=2)
+    card = copy.deepcopy(cpu_model).to("cuda", torch.bfloat16)
+    before = A.flash_attention.launches
+    got = llama.perplexity(card, stream.cuda(), seqlen=512, batch_size=2)
+    launches = A.flash_attention.launches - before
+    windows = stream.shape[0] // 512
+    assert launches == -(-windows // 2) * cfg.num_layers, launches
+    rel = abs(math.log(got) - math.log(want)) / math.log(want)
+    assert math.isfinite(got) and rel < LLAMA_LOSS_RTOL, \
+        f"small LLaMA log-ppl card (bf16) vs CPU (f32): rel {rel}"
+    return rel, launches
 
 
 def reset_counts(kernels):
@@ -1686,6 +2044,20 @@ def main(argv=None) -> int:
         f"{real_launches[0]} forward, {real_launches[1]} backward launches) vs f32 CPU: "
         f"worst per-target zero-share difference {real_worst:.3e} (gate "
         f"{REAL_BF16_SHARE_TOL})")
+    finished = tiny_blip2_generate_check(torch)
+    log("tiny BLIP-2 generate card vs CPU, f32: identical tokens in all "
+        f"{len(finished)} cases (rows finished of 8: "
+        + ", ".join(f"{k} {v}" for k, v in finished.items()) + ")")
+    bf = tiny_blip2_bf16_check(torch)
+    log(f"tiny BLIP-2 bf16 (EOS row +{EOS_BOOST}) decode step card vs CPU over "
+        f"{CAPTION_POINT['max_new_tokens']} teacher-forced steps: logits rel L2 "
+        f"{bf['step_rel_l2']:.3e} (gate {BF16_STEP_LOGITS_REL}), {bf['off_grid']:.3f} of "
+        "them no bf16 value (float32 sums); card generate, ids in the vocab and pad "
+        "after EOS (rows finished, rows equal to the CPU's, of 8): "
+        + ", ".join(f"{k} {f}, {e}" for k, (f, e) in bf["cases"].items()))
+    ppl_rel, ppl_launches = small_llama_ppl_check(torch, A)
+    log(f"small LLaMA perplexity bf16 card ({ppl_launches} flash launches) vs f32 CPU: "
+        f"log-ppl rel err {ppl_rel:.3e} (gate {LLAMA_LOSS_RTOL})")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1733,12 +2105,109 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 12. BLIP-2 FlanT5-XL evaluation: synthetic VQA, then generate's checks --
+    from ecoflap_tpu_torch.cli import evaluate as ev
+    from ecoflap_tpu_torch.models import blip2 as blip2_mod
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    # keep a copy of the tokens each of the CLI's batches generates: the
+    # CLI itself only returns the scores of their decoded texts
+    cli_tokens, generate = [], blip2_mod.Blip2T5.generate
+
+    def recording_generate(self, *a, **kw):
+        toks = generate(self, *a, **kw)
+        cli_tokens.append(toks.clone())
+        return toks
+
+    blip2_mod.Blip2T5.generate = recording_generate
+    t0 = time.time()
+    try:
+        vqa = ev.main(["--model", "blip2_t5", "--task", "vqa", "--model_scale", "full",
+                       "--synthetic", "--batch_size", str(BATCH_SIZE), "--eval_batches",
+                       str(EVAL_BATCHES), "--num_beams", str(VQA_POINT["num_beams"]),
+                       "--max_new_tokens", str(VQA_POINT["max_new_tokens"]),
+                       "--length_penalty", str(VQA_POINT["length_penalty"]),
+                       "--seed", str(SEED), "--output_dir", out_dir])
+    finally:
+        blip2_mod.Blip2T5.generate = generate
+    vqa_wall = time.time() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the tokens the CLI scored: one (8, 10) array a batch, ids in the vocab,
+    # only pad after a row's first EOS
+    assert [tuple(t.shape) for t in cli_tokens] == \
+        [(BATCH_SIZE, VQA_POINT["max_new_tokens"])] * EVAL_BATCHES, cli_tokens
+    cli_finished = [check_tokens(torch, t, blip2_mod.blip2_flant5xl().t5.vocab_size,
+                                 f"XL VQA CLI batch {i}") for i, t in enumerate(cli_tokens)]
+    x = eval_xl_checks(torch, cli_tokens[0])
+    eval_counts = read_counts(kernels)
+    eval_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # BLIP-2's attention is naive: no kernel of the port on this path
+    assert not any(eval_counts.values()), eval_counts
+    assert len(vqa["batch_walls_s"]) == EVAL_BATCHES and vqa["steady_qps"] > 0, vqa
+    log(f"BLIP-2 FlanT5-XL eval path (VQA, {EVAL_BATCHES} batches of {BATCH_SIZE}, beam "
+        f"{VQA_POINT['num_beams']}, {VQA_POINT['max_new_tokens']} tokens, lp "
+        f"{VQA_POINT['length_penalty']}): {vqa_wall:.1f} s incl. model init | eval "
+        f"{vqa['eval_time_s']} s | batch walls {vqa['batch_walls_s']} s | steady_qps "
+        f"{vqa['steady_qps']} | agg_metrics {vqa['agg_metrics']} | peak {eval_peak:.2f} GiB "
+        f"| launches {eval_counts}")
+    busy = x["vqa_busy_ms_per_step"]
+    log(f"BLIP-2 FlanT5-XL decode loop, batch 0 (40 beams): {x['vqa_step_ms']:.3f} ms a "
+        f"step at the VQA point | bound {x['bound_ms']:.3f} ms ({x['step_bytes']} weight "
+        f"bytes a step at {HBM_BYTES_PER_S:.3g} B/s) | {x['vqa_launches_per_step']:.0f} CUDA "
+        f"launches a step | device busy "
+        + ("not measured" if busy is None else f"{busy:.3f} ms a step (profiled)")
+        + f" | captioning point (beam {CAPTION_POINT['num_beams']}, "
+        f"{CAPTION_POINT['max_new_tokens']} tokens, lp {CAPTION_POINT['length_penalty']}): "
+        f"{x['caption_step_ms']:.3f} ms a step | rows finished: VQA {x['vqa_finished']}, "
+        f"captioning {x['caption_finished']} of {BATCH_SIZE}, the CLI's batches "
+        f"{cli_finished}; ids in the vocab and pad after EOS in the CLI's {EVAL_BATCHES} "
+        f"batches and in these; batch 0 the same in the CLI, through generate on the "
+        f"rebuilt model and twice through the loop")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 13. LLaMA-7B WikiText perplexity -----------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    t0 = time.time()
+    ppl = ev.main(["--model", "llama", "--task", "wikitext_ppl", "--model_scale", "full",
+                   "--synthetic", "--batch_size", str(BATCH_SIZE), "--seqlen",
+                   str(LLAMA_SEQLEN), "--seed", str(SEED), "--output_dir", out_dir])
+    ppl_wall = time.time() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the CLI's stream is one window, so one forward at batch 1; then 64
+    # windows through the same task and Runner at batch 8, the shape phase
+    # 2 holds the kernel at and times
+    long_ppl, long_wall = eval_ppl_stream(torch, out_dir)
+    ppl_counts = read_counts(kernels)
+    ppl_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one forward per batch of windows, one flash forward launch per block
+    forwards = -(-(EVAL_STREAM_TOKENS // LLAMA_SEQLEN) // BATCH_SIZE)
+    long_forwards = -(-EVAL_PPL_WINDOWS // BATCH_SIZE)
+    want_ppl = {"flash_attention": LLAMA_LAYERS * (forwards + long_forwards),
+                "flash_attention_bwd": 0, "perturb_inplace": 0, "perturb": 0}
+    assert ppl_counts == want_ppl, (ppl_counts, want_ppl)
+    assert math.isfinite(ppl["ppl"]) and ppl["ppl"] > 1, ppl
+    assert math.isfinite(long_ppl["ppl"]) and long_ppl["ppl"] > 1, long_ppl
+    log(f"LLaMA-7B WikiText perplexity path: the CLI ({EVAL_STREAM_TOKENS} tokens, "
+        f"windows of {LLAMA_SEQLEN}, {forwards} forward at batch 1): {ppl_wall:.1f} s incl. "
+        f"model init | eval {ppl['eval_time_s']} s | ppl {ppl['ppl']:.6g}; then "
+        f"{EVAL_PPL_WINDOWS} windows ({long_forwards} forwards at batch {BATCH_SIZE}): "
+        f"{long_wall:.1f} s incl. model init | eval {long_ppl['eval_time_s']} s | ppl "
+        f"{long_ppl['ppl']:.6g}; peak {ppl_peak:.2f} GiB | launches {ppl_counts}")
+
     for k in ("perturb_inplace", "perturb"):
         assert sum(weights[k].values()) == blip_counts[k] + llama_counts[k], k
     paths = {"blip2_t5": blip_counts, "llama": llama_counts,
              "llama_first_order": llama_fo_counts, "blip2_t5_first_order": blip_fo_counts,
              "blip2_t5_sparsegpt": sgpt_counts, "blip2_t5_global_mag": mag_counts,
-             "blip2_t5_global_gradmagabs": grad_counts}
+             "blip2_t5_global_gradmagabs": grad_counts, "blip2_t5_eval_vqa": eval_counts,
+             "llama_wikitext_ppl": ppl_counts}
     by_path = {k: {p: c[k] for p, c in paths.items()} for k in kernels}
     launches = {k: sum(by_path[k].values()) for k in kernels}
     log(json.dumps({"kernels": [

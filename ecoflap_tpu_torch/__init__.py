@@ -4,15 +4,19 @@ pruning pipeline, for one NVIDIA H100.
 It computes what the JAX package ``ecoflap_tpu`` computes and keeps its
 layout, so each module has a counterpart of the same name there:
 
-  core/      prune-spec parsing, the pruner registry, device selection
-  data/      calibration batches (hash tokenizer, synthetic samples)
-  models/    BLIP-2 FlanT5 as ``nn.Module``s under the reference's
-             state-dict names, plus the JAX-params loader
+  core/      prune-spec parsing, the registry, device selection
+  data/      tokenizers, calibration batches, the evaluation image
+             transform and annotation datasets
+  models/    BLIP-2 FlanT5 and LLaMA as ``nn.Module``s under the
+             reference's state-dict names, generation (greedy and beam
+             search over a KV cache), plus the JAX-params loader
   ops/       hand-written Hopper kernels (``csrc/``) with their plain
              PyTorch versions
-  pruning/   the zeroth-order coarse stage and the Wanda fine stage
-  runners/   sparsity-dict and training-statistics writers
-  cli/       the prune entry point
+  pruning/   the coarse stages (zeroth- and first-order), the Wanda and
+             SparseGPT fine stages, the global baselines
+  tasks/     VQA, GQA, captioning and language-model scorers
+  runners/   the evaluation loop, sparsity-dict and statistics writers
+  cli/       the prune and evaluate entry points
 
 Nothing here imports ``jax`` or ``ecoflap_tpu``.
 """

@@ -155,10 +155,7 @@ def _blip2(args, device, dtype):
     from ecoflap_tpu_torch.data import calibration as cal
     from ecoflap_tpu_torch.models import blip2
 
-    scale = args.model_scale
-    cfg = (blip2.blip2_flant5xl() if scale == "full"
-           else blip2.blip2_small() if scale == "small"
-           else blip2.tiny_config())
+    cfg = blip2.config_for_scale(args.model_scale)
     model = blip2.build_model(cfg, device=device, dtype=dtype,
                               seed=None if args.ckpt else args.seed)
     if args.ckpt:
@@ -182,11 +179,8 @@ def _llama(args, device, dtype):
     from ecoflap_tpu_torch.data import calibration as cal
     from ecoflap_tpu_torch.models import llama
 
-    scale = args.model_scale
-    cfg = (llama.llama_7b() if scale == "full"
-           else llama.open_llama_3b() if scale == "small"
-           else llama.tiny_config())
-    seqlen = args.seqlen if scale in ("full", "small") else 32
+    cfg = llama.config_for_scale(args.model_scale)
+    seqlen = args.seqlen if args.model_scale in ("full", "small") else 32
     model = llama.build_model(cfg, device=device, dtype=dtype,
                               seed=None if args.ckpt else args.seed)
     if args.ckpt:
@@ -208,7 +202,8 @@ def main(argv=None) -> Dict[str, Any]:
     and the ``pruner``. With
     ``--coarse_only`` it writes the sparsity dict, prints and returns the
     JAX CLI's short result (job id, wall, dict path) and stops."""
-    from ecoflap_tpu_torch.core.device import exact_float32_matmuls, resolve_device
+    from ecoflap_tpu_torch.core.device import (exact_float32_matmuls, resolve_device,
+                                               weight_dtype)
     from ecoflap_tpu_torch.core.spec import parse_prune_spec
     from ecoflap_tpu_torch.pruning.loader import load_pruner
     from ecoflap_tpu_torch.runners.runner import Runner, global_sparsity
@@ -222,11 +217,7 @@ def main(argv=None) -> Dict[str, Any]:
     # TF32 off for matmuls and convolutions, once, here: float32 runs must
     # compute what the JAX package computes
     exact_float32_matmuls()
-    # bf16 weights as the reference runs its models; float32 at test size
-    if args.dtype != "auto":
-        dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    else:
-        dtype = torch.bfloat16 if args.model_scale in ("full", "small") else torch.float32
+    dtype = weight_dtype(args.dtype, args.model_scale)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 

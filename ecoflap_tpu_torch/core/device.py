@@ -33,3 +33,11 @@ def synchronize(device: torch.device) -> None:
     device's time); nothing on the CPU."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def weight_dtype(flag: str, model_scale: str) -> torch.dtype:
+    """The CLIs' ``--dtype``: as asked, or for ``auto`` bf16 at small and
+    full scale, as the reference runs its models, and float32 at test size."""
+    if flag != "auto":
+        return torch.bfloat16 if flag == "bfloat16" else torch.float32
+    return torch.bfloat16 if model_scale in ("full", "small") else torch.float32

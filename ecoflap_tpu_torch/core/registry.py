@@ -1,6 +1,6 @@
-"""Name -> class registry for pruners (the reference's
-``registry.get_pruner_class``, LAVIS/lavis/common/registry.py). The port
-keeps its own instance, so its names never collide with the JAX package's
+"""Name -> class registry for pruners, tasks and dataset builders (the
+reference's ``registry``, LAVIS/lavis/common/registry.py). The port keeps
+its own instance, so its names never collide with the JAX package's
 registrations when both are loaded in one process."""
 
 from __future__ import annotations
@@ -9,16 +9,21 @@ from typing import Any, Dict
 
 
 class Registry:
-    _KINDS = ("pruner",)
+    _KINDS = ("pruner", "task", "builder")
 
     def __init__(self) -> None:
         self._maps: Dict[str, Dict[str, Any]] = {k: {} for k in self._KINDS}
 
-    def register(self, kind: str, name: str, obj: Any) -> Any:
+    def register(self, kind: str, name: str, obj: Any = None) -> Any:
+        """Register ``obj`` under ``name``; without ``obj``, a decorator."""
         if kind not in self._maps:
             raise KeyError(f"unknown registry kind {kind!r}; valid: {self._KINDS}")
-        self._maps[kind][name] = obj
-        return obj
+
+        def _do(o: Any) -> Any:
+            self._maps[kind][name] = o
+            return o
+
+        return _do if obj is None else _do(obj)
 
     def get(self, kind: str, name: str) -> Any:
         if kind not in self._maps:

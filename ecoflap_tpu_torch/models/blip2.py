@@ -23,6 +23,7 @@ from ecoflap_tpu_torch.core.device import resolve_device
 from ecoflap_tpu_torch.models import eva_vit, qformer
 from ecoflap_tpu_torch.models import t5 as t5_mod
 from ecoflap_tpu_torch.models.eva_vit import normal_
+from ecoflap_tpu_torch.models.generation import GenerateConfig, t5_generate
 from ecoflap_tpu_torch.models.layers import layer_norm, rms_norm
 from ecoflap_tpu_torch.pruning.adapter import ModelAdapter, StackSpec
 
@@ -91,6 +92,20 @@ class Blip2T5(nn.Module):
                                       batch["text_input_mask"])
         return self.t5_model.per_sample_loss(x, mask, batch["labels"])
 
+    @torch.inference_mode()
+    def generate(self, images: torch.Tensor, prompt_ids: torch.Tensor,
+                 prompt_mask: torch.Tensor, gen: Optional[GenerateConfig] = None,
+                 use_beam: bool = True) -> torch.Tensor:
+        """(B, max_new_tokens) generated token ids on the device
+        (blip2.py:153-178; reference blip2_t5.py:283-340, predict_answers
+        :371-431): the encoder over [query embeds ; prompt embeds], then the
+        decode loop."""
+        if gen is None:
+            gen = GenerateConfig(max_new_tokens=30, num_beams=5)
+        x, mask = self.encoder_inputs(images, prompt_ids, prompt_mask)
+        enc_out = self.t5_model.encode_embeds(x, mask)
+        return t5_generate(self.t5_model, enc_out, mask, gen, use_beam)
+
     @torch.no_grad()
     def init_(self, gen: torch.Generator) -> None:
         self.visual_encoder.init_(gen)
@@ -101,6 +116,17 @@ class Blip2T5(nn.Module):
         normal_(self.t5_proj.weight, 0.02, gen)
         self.t5_proj.bias.zero_()
         self.t5_model.init_(gen)
+
+
+def config_for_scale(scale: str, vocab_size: Optional[int] = None) -> Blip2Config:
+    """The CLIs' ``--model_scale``: ``full`` EVA ViT-g + FlanT5-XL, ``small``
+    ViT-B + flan-t5-base, ``tiny`` the test shapes (``vocab_size`` sets
+    tiny's T5 vocab)."""
+    if scale == "full":
+        return blip2_flant5xl()
+    if scale == "small":
+        return blip2_small()
+    return tiny_config(vocab_size)
 
 
 def build_model(cfg: Blip2Config, *, device=None, dtype=torch.float32,

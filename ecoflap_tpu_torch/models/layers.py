@@ -66,6 +66,40 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps) * weight).to(x.dtype)
 
 
+class Bf16LogitsF32(torch.autograd.Function):
+    """x Wᵀ of bf16 operands with float32 output on the card:
+    ``torch.mm(..., out_dtype=float32)``, which has no derivative of its own.
+    The backward is the JAX transpose of a ``preferred_element_type=float32``
+    dot: the float32 cotangent against the widened weight, one rounding to
+    x's dtype. The lm_head is frozen, so W gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(w)
+        flat = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
+        return flat.view(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.needs_input_grad[1]:
+            raise NotImplementedError("the lm_head weight takes no gradient")
+        (w,) = ctx.saved_tensors
+        gx = torch.matmul(g.to(torch.float32), w.to(torch.float32))
+        return gx.to(torch.bfloat16), None
+
+
+def logits_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x Wᵀ with float32 logits from the stored values: products summed in
+    float32 and never rounded to the weight dtype (the JAX dot's
+    ``preferred_element_type=float32``). On the card a bf16 product keeps
+    the tensor cores through ``out_dtype`` (``Bf16LogitsF32``, which also
+    differentiates it); elsewhere both operands are widened, which computes
+    the same sums."""
+    if x.is_cuda and x.dtype == torch.bfloat16:
+        return Bf16LogitsF32.apply(x, w)
+    return F.linear(x.to(torch.float32), w.to(torch.float32))
+
+
 def gelu(x: torch.Tensor, approximate: bool = True) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if approximate else "none")
 

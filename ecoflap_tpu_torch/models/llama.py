@@ -32,7 +32,7 @@ from torch import nn
 
 from ecoflap_tpu_torch.core.device import resolve_device
 from ecoflap_tpu_torch.models.eva_vit import normal_
-from ecoflap_tpu_torch.models.layers import collect_stats, mask_bias, rms_norm
+from ecoflap_tpu_torch.models.layers import collect_stats, logits_f32, mask_bias, rms_norm
 from ecoflap_tpu_torch.ops.attention import mha
 from ecoflap_tpu_torch.pruning.adapter import ModelAdapter, StackSpec
 
@@ -205,40 +205,6 @@ class LlamaModel(nn.Module):
         self.norm = LlamaRMSNorm(cfg.d_model, cfg.rms_eps)
 
 
-class _Bf16LogitsF32(torch.autograd.Function):
-    """x Wᵀ of bf16 operands with float32 output on the card:
-    ``torch.mm(..., out_dtype=float32)``, which has no derivative of its own.
-    The backward is the JAX transpose of a ``preferred_element_type=float32``
-    dot: the float32 cotangent against the widened weight, one rounding to
-    x's dtype. The lm_head is frozen, so W gets no gradient."""
-
-    @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(w)
-        flat = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
-        return flat.view(*x.shape[:-1], w.shape[0])
-
-    @staticmethod
-    def backward(ctx, g):
-        if ctx.needs_input_grad[1]:
-            raise NotImplementedError("the lm_head weight takes no gradient")
-        (w,) = ctx.saved_tensors
-        gx = torch.matmul(g.to(torch.float32), w.to(torch.float32))
-        return gx.to(torch.bfloat16), None
-
-
-def _logits_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x Wᵀ with float32 logits from the stored values: products summed in
-    float32 and never rounded to the weight dtype (the JAX dot's
-    ``preferred_element_type=float32``). On the card a bf16 product keeps
-    the tensor cores through ``out_dtype`` (``_Bf16LogitsF32``, which also
-    differentiates it); elsewhere both operands are widened, which computes
-    the same sums."""
-    if x.is_cuda and x.dtype == torch.bfloat16:
-        return _Bf16LogitsF32.apply(x, w)
-    return F.linear(x.to(torch.float32), w.to(torch.float32))
-
-
 def next_token_ce(logits: torch.Tensor, input_ids: torch.Tensor,
                   attn_mask: Optional[torch.Tensor]) -> torch.Tensor:
     """(B,) next-token CE, mean over valid targets, in the logsumexp form
@@ -281,7 +247,7 @@ class LlamaForCausalLM(nn.Module):
         cache = self.prepare_cache(attn_mask, x.shape[1], x.device)
         for blk in self.model.layers:
             x, _ = blk(x, cache)
-        return _logits_f32(self.model.norm(x), self.lm_head.weight)
+        return logits_f32(self.model.norm(x), self.lm_head.weight)
 
     def per_sample_loss(self, input_ids: torch.Tensor,
                         attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -291,7 +257,7 @@ class LlamaForCausalLM(nn.Module):
                          attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """per_sample_loss from the layer stack's output: the suffix-plan
         finish (llama.py:272-285)."""
-        logits = _logits_f32(self.model.norm(x), self.lm_head.weight)
+        logits = logits_f32(self.model.norm(x), self.lm_head.weight)
         return next_token_ce(logits, input_ids, attn_mask)
 
     @torch.no_grad()
@@ -323,6 +289,16 @@ def perplexity(model: LlamaForCausalLM, token_stream: torch.Tensor,
     for i in range(0, n, batch_size):
         total += float(model.per_sample_loss(windows[i:i + batch_size]).sum()) * seqlen
     return math.exp(total / (n * seqlen))
+
+
+def config_for_scale(scale: str) -> LlamaConfig:
+    """The CLIs' ``--model_scale``: ``full`` LLaMA-7B, ``small``
+    OpenLLaMA-3B, ``tiny`` the test shapes."""
+    if scale == "full":
+        return llama_7b()
+    if scale == "small":
+        return open_llama_3b()
+    return tiny_config()
 
 
 def build_model(cfg: LlamaConfig, *, device=None, dtype=torch.float32,

@@ -278,6 +278,21 @@ class T5Model(nn.Module):
             x, _ = blk(x, bias)
         return rms_norm(x, self.encoder.final_layer_norm.weight, self.cfg.ln_eps)
 
+    def encode(self, input_ids: torch.Tensor, attn_mask: torch.Tensor) -> torch.Tensor:
+        return self.encode_embeds(self.shared(input_ids), attn_mask)
+
+    def decode(self, enc_out: torch.Tensor, enc_mask: torch.Tensor,
+               decoder_input_ids: torch.Tensor,
+               decoder_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Teacher-forced decoder -> (B, S, V) float32 logits (t5.py:387-409)."""
+        if decoder_mask is None:
+            decoder_mask = torch.ones_like(decoder_input_ids)
+        x = self.shared(decoder_input_ids)
+        self_bias, cross_bias = self.decoder_biases(decoder_mask, enc_mask, x.shape[1])
+        for blk in self.decoder.block:
+            x, _ = blk(x, (self_bias, cross_bias, enc_out))
+        return self.logits(x)
+
     def decoder_inputs(self, labels: torch.Tensor, enc_out: torch.Tensor,
                        enc_mask: torch.Tensor):
         """(x, (self_bias, cross_bias, enc_out)) for the decoder blocks, with

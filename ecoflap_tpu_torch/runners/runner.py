@@ -1,5 +1,7 @@
-"""Pruning artifacts (port of the three savers of
-``ecoflap_tpu/runners/runner.py``; reference evaluate_blip.py:438-472):
+"""The evaluation loop and the pruning artifacts (port of
+``ecoflap_tpu/runners/runner.py``'s evaluation and its three savers;
+reference runner_base.py:419-428 and evaluate_blip.py:438-472): a task's
+metrics, logged as one JSON line each to ``evaluate.txt``;
 ``sparsity_dict/<job>.yaml`` under the reference keys,
 ``training_statistics/<job>.yaml`` with the wall clock and the card's peak
 memory, and the pruned model as ``pruned_checkpoint/<job>.pth``.
@@ -10,7 +12,9 @@ writes them (sorted keys, floats with a dot), so no YAML package is needed.
 
 from __future__ import annotations
 
+import json
 import os
+import time
 from typing import Any, Dict, Mapping, Optional
 
 import torch
@@ -49,6 +53,33 @@ class Runner:
         self.output_dir = output_dir
         self.job_id = job_id
         os.makedirs(output_dir, exist_ok=True)
+
+    # -- evaluation (runner.py:38-66) -------------------------------------------
+
+    def evaluate(self, task, data, split: str = "val", **extra: Any) -> Dict[str, Any]:
+        """The task's metrics over ``data``, with the wall and ``extra``,
+        logged under ``split``."""
+        t0 = time.time()
+        metrics = task.evaluation(data)
+        metrics["eval_time_s"] = round(time.time() - t0, 2)
+        metrics.update(extra)
+        self.log_metrics(metrics, split=split)
+        return metrics
+
+    def evaluate_splits(self, task, split_data: Mapping[str, Any],
+                        cur_epoch: Any = "best") -> Dict[str, Dict[str, Any]]:
+        """One evaluation per test split, each logged under its split's
+        name (RunnerBase.evaluate, runner_base.py:419-428)."""
+        return {name: self.evaluate(task, data, split=name, epoch=cur_epoch)
+                for name, data in split_data.items()}
+
+    def log_metrics(self, metrics: Mapping[str, Any], split: str = "val") -> None:
+        """Append ``{split: metrics}`` as a JSON line to ``evaluate.txt``
+        (the reference's vqa.py:178-181 convention)."""
+        with open(os.path.join(self.output_dir, "evaluate.txt"), "a") as f:
+            f.write(json.dumps({split: dict(metrics)}) + "\n")
+
+    # -- pruning artifacts --------------------------------------------------------
 
     def _path(self, sub: str) -> str:
         d = os.path.join(self.output_dir, sub)

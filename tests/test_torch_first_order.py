@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from ecoflap_tpu.pruning.loader import load_pruner as jload
-from ecoflap_tpu_torch.models import llama as tllama
+from ecoflap_tpu_torch.models import layers as tlayers
 from ecoflap_tpu_torch.pruning.first_order import first_order_group_sums as tsums
 from ecoflap_tpu_torch.pruning.loader import load_pruner as tload
 from ecoflap_tpu_torch.pruning.sparsity import compute_layer_sparsity
@@ -93,7 +93,7 @@ def test_unported_and_unknown_methods_raise():
 
 def test_bf16_logits_backward_is_the_transpose_of_the_widened_product():
     """The card's bf16 lm_head product has no derivative of its own
-    (``torch.mm(..., out_dtype=float32)``), so ``_Bf16LogitsF32`` supplies
+    (``torch.mm(..., out_dtype=float32)``), so ``Bf16LogitsF32`` supplies
     one: the float32 cotangent against the widened weight, one rounding to
     bf16 -- what autograd gives through the CPU's widened ``F.linear``. The
     forward needs the card; the backward's formula runs here."""
@@ -102,14 +102,14 @@ def test_bf16_logits_backward_is_the_transpose_of_the_widened_product():
     w = torch.from_numpy(rng.normal(size=(10, 16)).astype(np.float32)).to(torch.bfloat16)
     g = torch.from_numpy(rng.normal(size=(2, 3, 10)).astype(np.float32))
     ctx = types.SimpleNamespace(saved_tensors=(w,), needs_input_grad=(True, False))
-    gx, gw = tllama._Bf16LogitsF32.backward(ctx, g)
+    gx, gw = tlayers.Bf16LogitsF32.backward(ctx, g)
     leaf = x.clone().requires_grad_()
-    (want,) = torch.autograd.grad(tllama._logits_f32(leaf, w), leaf, grad_outputs=g)
+    (want,) = torch.autograd.grad(tlayers.logits_f32(leaf, w), leaf, grad_outputs=g)
     assert gw is None and gx.dtype == torch.bfloat16
     assert torch.equal(gx, want)
     ctx.needs_input_grad = (True, True)
     with pytest.raises(NotImplementedError, match="lm_head"):
-        tllama._Bf16LogitsF32.backward(ctx, g)
+        tlayers.Bf16LogitsF32.backward(ctx, g)
 
 
 BLIP2_SPECS = {"visual_encoder.blocks": "3-0.5-1.0-1.0",
