@@ -24,14 +24,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
      at the zeroth_pb shape, scoring by the lane ensemble (the default: the
      out-of-place perturbation kernel), counting kernel launches;
   5. the LLaMA path: the same entry point prunes LLaMA-7B at full width and
-     depth with the flags of scripts/llama/ecoflap_zero.sh, except one
-     coarse microbatch of 8 windows (the reference scores 32), scoring by
+     depth with the flags of scripts/llama/ecoflap_zero.sh, except 64
+     calibration windows in microbatches of 4 and one coarse microbatch of 4
+     windows (the reference prunes on 128 and scores 32; cut for time from
+     128 windows in microbatches of 8), scoring by
      the serial in-place cycle (LLaMA's default: the in-place perturbation
      kernel), counting kernel launches;
   6. the LLaMA first-order path: LLaMA-7B at full width and depth with the
      same flags and ``--score_method GradOnly_sum`` (the reference
-     LLaMA/main.py without --use_mezo), all 32 coarse windows (4
-     microbatches), counting kernel launches: every block's backward runs
+     LLaMA/main.py without --use_mezo), all 32 coarse windows (8
+     microbatches of 4), counting kernel launches: every block's backward runs
      the flash backward kernels;
   7. the BLIP-2 first-order path: BLIP-2 FlanT5-XL with the flags of
      scripts/blip2/ecoflap_first.py (GradMagAbs_sum), cut to 32 coarse
@@ -81,13 +83,39 @@ Phases, in order; any failure raises and the exit code is non-zero:
      of LLaMA-7B at full width and depth (the JAX CLI's synthetic stream:
      one window of 2048, one forward at batch 1), then 64 windows through
      the same task and ``Runner.evaluate`` at batch 8; finite, one flash
-     forward launch per block and forward, no other kernel.
+     forward launch per block and forward, no other kernel;
+ 14. the standalone FlanT5-XL path: the prune CLI with ``--cfg-path
+     t5/c4_prefix_derivative_compute.yaml`` (scripts/t5/ecoflap.py's flags:
+     t5_wanda_pruner, MEZO-GradOnly_avg, cap 0.6) cut by ``--options`` to
+     one coarse microbatch of 8 (the reference scores 128), every target by
+     the serial in-place cycle (kernel 1), then its ``.pth`` read back
+     tensor by tensor into a fresh XL model;
+ 15. FlanT5-XL MMLU: the evaluate CLI's synthetic branch at full width, then
+     57 subjects x 8 questions (5 shots) through ``MMLUTask`` and
+     ``Runner.evaluate`` at the task's 2,048-token budget (no prompt cut),
+     twice, with the same predictions;
+ 16. the EVA-CLIP-g path: ``--cfg-path eva_clip/ecoflap.yaml``
+     (scripts/eva_clip/ecoflap.py's flags) cut to two coarse microbatches,
+     the visual tower's 160 targets by the serial cycle, its ``.pth`` (39
+     blocks) read back; then zero-shot classification of the pruned model
+     at full width: a classifier over 1,000 synthetic class names x the 80
+     OpenAI templates, 8 batches of 32 images through the task and
+     ``Runner.evaluate``;
+ 17. the CLIP ViT-B/16 path: scripts/coop/ecoflap_wanda.sh's second loop,
+     uncut (96 targets, 4 coarse microbatches of 16), then zero-shot
+     classification with the ImageNet CoOp template.
 Phase 9 also holds tiny BLIP-2's generated tokens (f32, greedy and beam 5
 at the VQA and captioning points) on the card against the CPU; tiny BLIP-2
 in bf16 with rows that finish: the decode step's float32 logits on the card
-against the CPU's, and the card's tokens' validity; and the small LLaMA's
-bf16 perplexity on the card (flash kernel) against f32 on the CPU. Kernel launch counts are set to 0 just before each of phases 4 to 8
-and 10 to 13 and read just after it. The line before the last holds the card's
+against the CPU's, and the card's tokens' validity; the small LLaMA's
+bf16 perplexity on the card (flash kernel) against f32 on the CPU; and, in
+f32, tiny standalone T5's zeroth-order and SparseGPT masks (SparseGPT on
+random ids, then on the CLI's own batch: the flip share read, encoder block
+0 from one Hessian in f32 and f64), tiny CLIP's and
+EVA-CLIP's contrastive losses and zero-shot logits, and tiny T5's MMLU
+first-token logits, card against CPU. Phase 2 also holds the in-place
+kernel at CLIP ViT-B/16's eight weight shapes. Kernel launch counts are set
+to 0 just before each of phases 4 to 8 and 10 to 17 and read just after it. The line before the last holds the card's
 ``name, power.limit``; the last is ``{"ok": true, "device": {...}}``.
 """
 
@@ -126,9 +154,14 @@ RAGGED_LEAF = (3, *RAGGED)
 OUT_OF_PLACE_SHAPES = XL_SHAPES + [RAGGED]
 # LLaMA-7B target shapes per block: q, k, v, o; gate, up; down
 LLAMA_SHAPES = [(4096, 4096)] * 4 + [(11008, 4096)] * 2 + [(4096, 11008)]
-# the in-place kernel runs phase 5's serial cycle (LLaMA-7B) and the BLIP-2
-# serial cycle that --mezo_ensemble 0 selects
-IN_PLACE_SHAPES = XL_SHAPES + sorted(set(LLAMA_SHAPES)) + [RAGGED]
+# CLIP ViT-B/16's target shapes (out, in) per block: the visual resblocks'
+# in_proj, out_proj, c_fc and c_proj at width 768, the text tower's at 512
+CLIP_SHAPES = [(2304, 768), (768, 768), (3072, 768), (768, 3072),
+               (1536, 512), (512, 512), (2048, 512), (512, 2048)]
+# the in-place kernel runs the serial cycles of phases 5 (LLaMA-7B), 14
+# (FlanT5-XL, BLIP-2's T5 shapes), 16 (EVA-CLIP-g, BLIP-2's ViT shapes) and
+# 17 (CLIP ViT-B/16), and BLIP-2's that --mezo_ensemble 0 selects
+IN_PLACE_SHAPES = XL_SHAPES + sorted(set(LLAMA_SHAPES)) + CLIP_SHAPES + [RAGGED]
 LLAMA_LINEARS = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
                  "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj", "mlp.down_proj")
 SEED = 42
@@ -137,18 +170,25 @@ NUM_SAMPLES = 128
 NUM_DATA_FIRST_STAGE = 32
 LLAMA_LAYERS = 32
 LLAMA_SEQLEN = 2048
-LLAMA_FIRST_STAGE = 8  # one coarse microbatch; the reference scores 32
+# phases 5-6 (LLaMA-7B) calibrate on 64 windows in microbatches of 4 and
+# score one coarse microbatch of 4 windows zeroth-order (the reference
+# scores 32 windows and prunes on 128, at batch 1), cut from 128 windows in
+# microbatches of 8, whose compute-bound suffix forwards took 124 s, to keep
+# the run inside half its limit
+LLAMA_BATCH = 4
+LLAMA_SAMPLES = 64
+LLAMA_FIRST_STAGE = 4  # one coarse microbatch
 LLAMA_FO_FIRST_STAGE = 32  # the first-order path scores all 32, as the reference
 BLIP2_FO_FIRST_STAGE = 32  # the reference's ecoflap_first.py scores 128
 Z_ULP_TOL = 4  # CUDA logf/cosf vs PyTorch's: a few ulp at most
 BF16_MISMATCH_SHARE = 1e-4  # bf16 outputs a z ulp away from a rounding tie
-# (B, H, S, Dh): the coarse and fine chunk shape of LLaMA-7B (also phase 13's
-# batches of 8 windows), phase 13's one window at batch 1 (the evaluate CLI's
-# synthetic stream), a short one, and one whose last 128-row tile is half
-# full (S % 128 == 64: the tensor maps' bounds zero-fill it and its rows past
-# S are never stored)
-FLASH_SHAPES = [(8, 32, 2048, 128), (1, 32, 2048, 128), (1, 32, 512, 128),
-                (2, 8, 576, 128)]
+# (B, H, S, Dh): phase 13's batches of 8 windows of LLaMA-7B (the timed
+# shape), the coarse and fine chunk shape of phases 5-6, phase 13's one
+# window at batch 1 (the evaluate CLI's synthetic stream), a short one, and
+# one whose last 128-row tile is half full (S % 128 == 64: the tensor maps'
+# bounds zero-fill it and its rows past S are never stored)
+FLASH_SHAPES = [(8, 32, 2048, 128), (4, 32, 2048, 128), (1, 32, 2048, 128),
+                (1, 32, 512, 128), (2, 8, 576, 128)]
 # kernel (bf16 out) vs plain version (float32 throughout, one rounding to
 # bf16). The output rounding alone is half a bf16 ulp, 2^-9 relative, on
 # either side, so two roundings can sit one ulp (2^-8 = 3.9e-3 relative)
@@ -293,6 +333,47 @@ EOS_BOOST = 0.3
 # step that attends to the wrong cache rows moves them further (a logit
 # rounded to bf16 also fails the float32 check of the step).
 BF16_STEP_LOGITS_REL = 1e-3
+# phases 14-17: standalone FlanT5-XL, EVA-CLIP-g and CLIP ViT-B/16, with the
+# project YAMLs of their launchers where the repo has one
+T5_CFG_PATH = "t5/c4_prefix_derivative_compute.yaml"
+T5_FIRST_STAGE = 8  # one coarse microbatch of the YAML's 8; the reference scores 128
+T5_TARGETS = 24 * 7 + 24 * 11
+EVA_CFG_PATH = "eva_clip/ecoflap.yaml"
+EVA_FIRST_STAGE = 16  # two coarse microbatches of the YAML's 8
+EVA_TARGETS = 40 * 4
+CLIP_SAMPLES = 64  # scripts/coop/ecoflap_wanda.sh: 64 samples at batch 16, all scored
+CLIP_BATCH = 16
+CLIP_TARGETS = 2 * 12 * 4
+# phase 15: the MMLU harness's 57 subjects, 8 test questions each, 5 shots
+MMLU_TEST_PER_SUBJECT = 8
+MMLU_SHOTS = 5
+MMLU_MAX_TOKENS = 2048  # crop_prompt's budget: no prompt reaches it
+# word counts of the synthetic questions and choices: 5-shot prompts of some
+# hundreds of tokens, as MMLU's run
+MMLU_QUESTION_WORDS = (10, 90)
+MMLU_CHOICE_WORDS = (1, 15)
+# phases 16-17: zero-shot classification over synthetic class names
+ZS_CLASSES = 1000
+ZS_BATCHES = 8
+ZS_BATCH = 32
+# peak device memory of each new prune path, GiB: the bf16 weights (FlanT5-XL
+# 5.3, EVA-CLIP-g 2.1, CLIP 0.3) and the stacks' calibration activations
+# with a few GiB to spare; a leak of a model copy or of per-target buffers
+# crosses them
+T5_PEAK_GIB = 16.0
+EVA_PEAK_GIB = 16.0
+CLIP_PEAK_GIB = 8.0
+# phase 9, the new families at tiny widths, f32, card vs CPU (TF32 off):
+# the same float32 operations in another order part by a few ulps (1e-6
+# relative) per value, through 2-4 blocks; 1e-3 relative L2 leaves a wide
+# margin and still fails on a wrong mask, bias, activation or pooling,
+# which move these values by O(1e-1). The MeZO scores (eps 0.05) differ by
+# the kernel's and the plain version's z (a few ulps) and the losses' float32
+# rounding: their sparsity dicts are held to 1e-3 relative, and a mask entry
+# may flip only at a near-tie, at most 1e-3 of all (as SparseGPT's masks).
+NEW_FAMILY_REL_L2 = 1e-3
+NEW_FAMILY_DICT_RTOL = 1e-3
+NEW_FAMILY_MASK_SHARE = 1e-3
 
 
 def log(*a):
@@ -641,16 +722,32 @@ def time_perturb_host(P, torch, perturb_seed):
     return out
 
 
-def perturb_launch_weights():
+def serial_cycle_paths():
+    """{path: ((out, in) of each target, coarse microbatches)} of the paths
+    that score by the serial in-place cycle: LLaMA-7B (phase 5), FlanT5-XL
+    (phase 14), EVA-CLIP-g's visual tower (phase 16) and CLIP ViT-B/16
+    (phase 17)."""
+    t5_xl = xl_target_shapes()[4 * 39:]
+    eva_g = [(4224, 1408), (1408, 1408), (6144, 1408), (1408, 6144)] * 40
+    clip_b16 = CLIP_SHAPES[:4] * 12 + CLIP_SHAPES[4:] * 12
+    return {"llama": (LLAMA_SHAPES * LLAMA_LAYERS, LLAMA_FIRST_STAGE // LLAMA_BATCH),
+            "t5": (t5_xl, T5_FIRST_STAGE // BATCH_SIZE),
+            "eva_clip": (eva_g, EVA_FIRST_STAGE // BATCH_SIZE),
+            "clip": (clip_b16, CLIP_SAMPLES // CLIP_BATCH)}
+
+
+def perturb_launch_weights(paths=None):
     """{kernel: {(out, in): launches}} on the zeroth-order paths: the lane
     ensemble of phase 4 launches the out-of-place kernel twice per target
-    and coarse microbatch, the serial cycle of phase 5 the in-place kernel
-    three times."""
+    and coarse microbatch, each serial cycle (``serial_cycle_paths``, or the
+    ones named in ``paths``) the in-place kernel three times."""
     inplace, out_of_place = {}, {}
     for s in xl_target_shapes():
         out_of_place[s] = out_of_place.get(s, 0) + 2 * (NUM_DATA_FIRST_STAGE // BATCH_SIZE)
-    for s in LLAMA_SHAPES * LLAMA_LAYERS:
-        inplace[s] = inplace.get(s, 0) + 3 * (LLAMA_FIRST_STAGE // BATCH_SIZE)
+    for name, (shapes, mb) in serial_cycle_paths().items():
+        if paths is None or name in paths:
+            for s in shapes:
+                inplace[s] = inplace.get(s, 0) + 3 * mb
     return {"perturb_inplace": inplace, "perturb": out_of_place}
 
 
@@ -1034,7 +1131,6 @@ def vit_block_sparsegpt(torch, ratio):
     below the mask alone on both."""
     from ecoflap_tpu_torch.data import calibration as cal
     from ecoflap_tpu_torch.models import blip2, eva_vit
-    from ecoflap_tpu_torch.pruning.sparsegpt import sparsegpt_prune_weight
 
     cfg = blip2.blip2_flant5xl()
     with torch.device("meta"):
@@ -1053,33 +1149,42 @@ def vit_block_sparsegpt(torch, ratio):
         for c in range(0, NUM_SAMPLES, BATCH_SIZE):
             _, part = block(vit.embed(images[c:c + BATCH_SIZE]), None, collect="hessian")
             stats = {k: stats[k] + v if k in stats else v for k, v in part.items()}
-    out = {}
-    for local in eva_vit.LINEAR_NAMES:
-        h = (2.0 / NUM_SAMPLES) * stats[local].to(torch.float32)
-        w = block.get_submodule(local).weight.to(torch.float32)
-        ev = torch.linalg.eigvalsh(h.double())
-        sym = (h + h.mT) / 2
-        fails = tuple(int(torch.linalg.cholesky_ex(m).info) != 0 for m in (sym, sym.cpu()))
-        card = sparsegpt_prune_weight(w, h, ratio)
-        cpu = sparsegpt_prune_weight(w.cpu(), h.cpu(), ratio).cuda()
-        assert torch.isfinite(card).all() and torch.isfinite(cpu).all(), local
-        hd, wd = h.double(), w.double()
-
-        def recon(p):
-            d = wd - p.double()
-            return ((d @ hd) * d).sum().item() / ((wd @ hd) * wd).sum().item()
-
-        r = {"eig_ratio": (ev[0] / ev[-1]).item(), "undamped_cholesky_fails": fails,
-             "mask_share": ((card == 0) != (cpu == 0)).float().mean().item(),
-             "rel_l2": ((card - cpu).norm() / cpu.norm()).item(),
-             "recon_card": recon(card), "recon_cpu": recon(cpu),
-             "recon_mask_only": recon(w * (card != 0))}
-        assert abs(r["recon_card"] / r["recon_cpu"] - 1) <= SPARSEGPT_XL_RECON_RTOL, (local, r)
-        assert max(r["recon_card"], r["recon_cpu"]) < r["recon_mask_only"], (local, r)
-        out[local] = r
+    out = {local: sparsegpt_card_vs_cpu(
+        torch, block.get_submodule(local).weight.to(torch.float32),
+        (2.0 / NUM_SAMPLES) * stats[local].to(torch.float32), ratio, local)
+        for local in eva_vit.LINEAR_NAMES}
     del vit, stats
     torch.cuda.empty_cache()
     return out
+
+
+def sparsegpt_card_vs_cpu(torch, w, h, ratio, name):
+    """One weight ``w`` pruned by SparseGPT from one float32 Hessian ``h``
+    (both on the card) on the card and on the CPU (vit_block_sparsegpt's
+    readings and gates)."""
+    from ecoflap_tpu_torch.pruning.sparsegpt import sparsegpt_prune_weight
+
+    ev = torch.linalg.eigvalsh(h.double())
+    sym = (h + h.mT) / 2
+    fails = tuple(int(torch.linalg.cholesky_ex(m).info) != 0 for m in (sym, sym.cpu()))
+    card = sparsegpt_prune_weight(w, h, ratio)
+    cpu = sparsegpt_prune_weight(w.cpu(), h.cpu(), ratio).cuda()
+    assert torch.isfinite(card).all() and torch.isfinite(cpu).all(), name
+    hd, wd = h.double(), w.double()
+
+    def recon(p):
+        d = wd - p.double()
+        return ((d @ hd) * d).sum().item() / ((wd @ hd) * wd).sum().item()
+
+    r = {"eig_ratio": (ev[0] / ev[-1]).item(), "undamped_cholesky_fails": fails,
+         "rank": int((ev > ev[-1] * 1e-6).sum()), "size": h.shape[0],
+         "mask_share": ((card == 0) != (cpu == 0)).float().mean().item(),
+         "rel_l2": ((card - cpu).norm() / cpu.norm()).item(),
+         "recon_card": recon(card), "recon_cpu": recon(cpu),
+         "recon_mask_only": recon(w * (card != 0))}
+    assert abs(r["recon_card"] / r["recon_cpu"] - 1) <= SPARSEGPT_XL_RECON_RTOL, (name, r)
+    assert max(r["recon_card"], r["recon_cpu"]) < r["recon_mask_only"], (name, r)
+    return r
 
 
 def check_sparsegpt_prune(torch, res, sd):
@@ -1312,16 +1417,19 @@ def check_global_prune(torch, res, bounds):
     return shares
 
 
-def pth_round_trip(torch, res):
+def pth_round_trip(torch, res, mod=None, cfg=None):
     """The phase's ``.pth`` loaded by the ``--ckpt`` loader into a freshly
-    built BLIP-2 FlanT5-XL (the pruned model's dtype, on the card): every
-    tensor equal to the pruned model's. Returns (file bytes, read seconds)."""
+    built model (``mod.build_model(cfg)``, BLIP-2 FlanT5-XL by default; the
+    pruned model's dtype, on the card): every tensor equal to the pruned
+    model's. Returns (file bytes, read seconds)."""
     from ecoflap_tpu_torch.models import blip2
     from ecoflap_tpu_torch.utils.checkpoint import load_into, load_torch_checkpoint
 
+    if mod is None:
+        mod, cfg = blip2, blip2.blip2_flant5xl()
     size = os.path.getsize(res["pth"])
-    fresh = blip2.build_model(blip2.blip2_flant5xl(), device="cuda",
-                              dtype=next(res["model"].parameters()).dtype, seed=None)
+    fresh = mod.build_model(cfg, device="cuda",
+                            dtype=next(res["model"].parameters()).dtype, seed=None)
     torch.cuda.synchronize()
     t0 = time.time()
     ignored = load_into(fresh, load_torch_checkpoint(res["pth"]))
@@ -1656,6 +1764,405 @@ def small_llama_ppl_check(torch, A):
     return rel, launches
 
 
+def new_family_checks(torch, P, tmp):
+    """Phase 9's checks of the new families at tiny widths, float32, card
+    against CPU (module docstring); returns their readings."""
+    import numpy as np
+
+    from ecoflap_tpu_torch.cli import prune as cli
+    from ecoflap_tpu_torch.cli.evaluate import mmlu_logits_fn
+    from ecoflap_tpu_torch.data.calibration import HashTokenizer
+    from ecoflap_tpu_torch.models import clip, t5
+    from ecoflap_tpu_torch.pruning.loader import load_pruner
+    from ecoflap_tpu_torch.runners.runner import read_flat_yaml
+    from ecoflap_tpu_torch.utils.checkpoint import export_state_dict, save_torch_checkpoint
+
+    def rel_l2(a, b):
+        a, b = a.detach().cpu().double(), b.detach().cpu().double()
+        return ((a - b).norm() / b.norm()).item()
+
+    out = {}
+    cpu_t5 = t5.build_model(t5.tiny_config(), device="cpu", seed=3)
+    ckpt = os.path.join(tmp, "tiny_t5.pth")
+    save_torch_checkpoint(export_state_dict(cpu_t5), ckpt)
+    # zeroth-order through the CLI from one --ckpt: 3 kernel-1 launches per
+    # target and coarse microbatch on the card
+    zeros, dicts = {}, {}
+    for dev in ("cuda", "cpu"):
+        before = P.perturb_inplace.launches
+        r = cli.main(["--device", dev, "--model", "t5", "--ckpt", ckpt,
+                      "--pruning_method", "t5_wanda_pruner", "--prune_spec", "2-0.5-1.0-1.0",
+                      "--sparsity_ratio_granularity", "block", "--max_sparsity_per_layer",
+                      "0.7", "--num_data_first_stage", "8", "--noise_eps", str(ENSEMBLE_EPS),
+                      "--num_samples", "8", "--batch_size", "4",
+                      "--output_dir", os.path.join(tmp, f"t5_{dev}")])
+        made = P.perturb_inplace.launches - before
+        assert made == (3 * (2 * 7 + 2 * 11) * 2 if dev == "cuda" else 0), (dev, made)
+        zeros[dev] = {t.name: (t.weight(r["model"]) == 0).cpu()
+                      for t in r["pruner"].adapter.targets()}
+        dicts[dev] = read_flat_yaml(r["sparsity_dict"])
+    assert set(dicts["cuda"]) == set(dicts["cpu"]) and len(dicts["cpu"]) == 36
+    for k, v in dicts["cpu"].items():
+        assert abs(dicts["cuda"][k] - v) <= NEW_FAMILY_DICT_RTOL * abs(v), (k, v)
+    out["t5_wanda_pruner_mask_flip_share"] = mask_flips(zeros["cuda"], zeros["cpu"])[0] / sum(
+        v.numel() for v in zeros["cpu"].values())
+    # SparseGPT on a batch of random ids: the CLI's synthetic text has five
+    # words, so its first blocks' Hessians have rank 5-7 of 32, where the
+    # two sides' float32 factors differ by O(1) (as small_sparsegpt_check
+    # widens tiny BLIP-2's init); the CLI's own batch is read below
+    # (t5_cli_batch_sparsegpt)
+    g = torch.Generator().manual_seed(4)
+    vocab = cpu_t5.cfg.vocab_size
+    batch = {"input_ids": torch.randint(2, vocab, (8, 16), generator=g),
+             "attn_mask": torch.ones(8, 16, dtype=torch.long),
+             "labels": torch.randint(2, vocab, (8, 16), generator=g)}
+    pruned = {}
+    for dev in ("cuda", "cpu"):
+        ad = t5.make_adapter(copy.deepcopy(cpu_t5).to(dev))
+        load_pruner("t5_sparsegpt_pruner", ad, {k: v.to(dev) for k, v in batch.items()}, 2,
+                    dict(prune_spec="2-0.5-1.0-1.0", verbose=False)).prune()
+        pruned[dev] = {t.name: t.weight(ad.model).detach().cpu() for t in ad.targets()}
+    out["t5_sparsegpt_pruner_mask_flip_share"] = mask_flips(pruned["cuda"], pruned["cpu"])[0] / sum(
+        v.numel() for v in pruned["cpu"].values())
+    for k in ("t5_wanda_pruner_mask_flip_share", "t5_sparsegpt_pruner_mask_flip_share"):
+        assert out[k] <= NEW_FAMILY_MASK_SHARE, out
+    out["t5_sparsegpt_cli_batch"] = t5_cli_batch_sparsegpt(torch, cli, ckpt, tmp)
+    for eva in (False, True):
+        name = "eva_clip" if eva else "clip"
+        cpu = clip.build_model(clip.tiny_config(eva=eva), device="cpu", seed=3)
+        card = copy.deepcopy(cpu).to("cuda")
+        g = torch.Generator().manual_seed(5)
+        cfg = cpu.cfg
+        img = torch.randn(8, cfg.img_size, cfg.img_size, 3, generator=g)
+        ids = torch.randint(1, cfg.text.vocab_size, (8, cfg.text.context_length), generator=g)
+        ids[:, -1] = cfg.text.vocab_size - 1
+        prompts = torch.randint(1, cfg.text.vocab_size - 1,
+                                (5 * 2, cfg.text.context_length), generator=g)
+        got = {}
+        with torch.no_grad():
+            for dev, m in (("cuda", card), ("cpu", cpu)):
+                loss = m.contrastive_loss({"image": img.to(dev), "text_ids": ids.to(dev)})
+                logits = m.predict(img.to(dev), m.zero_shot_classifier(prompts.to(dev), 5))
+                got[dev] = (loss, logits)
+        out[f"{name}_loss_rel_l2"] = rel_l2(got["cuda"][0], got["cpu"][0])
+        out[f"{name}_zero_shot_rel_l2"] = rel_l2(got["cuda"][1], got["cpu"][1])
+        assert max(out[f"{name}_loss_rel_l2"], out[f"{name}_zero_shot_rel_l2"]) \
+            <= NEW_FAMILY_REL_L2, out
+    tok = HashTokenizer(vocab_size=cpu_t5.cfg.vocab_size)
+    rng = np.random.default_rng(6)
+    prompts = [" ".join(rng.choice(["the", "a", "dog", "A", "B", "C", "D", "x"], 30))
+               for _ in range(8)]
+    card_t5 = copy.deepcopy(cpu_t5).to("cuda")
+    lg = {dev: mmlu_logits_fn(m, tok, torch.device(dev))(prompts)
+          for dev, m in (("cuda", card_t5), ("cpu", cpu_t5))}
+    out["mmlu_logits_rel_l2"] = rel_l2(lg["cuda"], lg["cpu"])
+    assert out["mmlu_logits_rel_l2"] <= NEW_FAMILY_REL_L2, out
+    return out
+
+
+def t5_cli_batch_sparsegpt(torch, cli, ckpt, tmp):
+    """``t5_sparsegpt_pruner`` on the prune CLI's own calibration batch of
+    tiny T5 (from ``ckpt``; its text has five words): the whole model's mask
+    flip share card vs CPU in float32, a reading; then encoder block 0,
+    whose Hessians both sides would build from the same inputs: each linear
+    pruned from one Hessian on the card and on the CPU, in float32
+    (sparsegpt_card_vs_cpu: its objective within SPARSEGPT_XL_RECON_RTOL on
+    both sides) and in float64, whose masks must agree up to
+    NEW_FAMILY_MASK_SHARE: rounding amplified by near-singular Hessians
+    flips float32 masks and shrinks by 2^29 in float64, where a fault on
+    the card would flip them all the same. Returns (the whole model's flip
+    share, {linear: readings})."""
+    from ecoflap_tpu_torch.pruning.sparsegpt import sparsegpt_prune_weight
+
+    common = ["--model", "t5", "--ckpt", ckpt, "--num_samples", "8", "--batch_size", "4"]
+    zeros = {}
+    for dev in ("cuda", "cpu"):
+        r = cli.main(common + ["--device", dev, "--pruning_method", "t5_sparsegpt_pruner",
+                               "--prune_spec", "2-0.5-1.0-1.0",
+                               "--output_dir", os.path.join(tmp, f"t5_sgpt_{dev}")])
+        zeros[dev] = {t.name: t.weight(r["model"]).detach().cpu()
+                      for t in r["pruner"].adapter.targets()}
+    flips, total = mask_flips(zeros["cuda"], zeros["cpu"])
+    ad, batch, _, _ = cli.SETUPS["t5"](cli.build_parser().parse_args(common),
+                                       torch.device("cuda"), torch.float32)
+    stack = next(s for s in ad.stacks if s.name == "encoder.block")
+    block = stack.blocks(ad.model)[0]
+    with torch.no_grad():
+        x, cache = stack.prepare_inputs(ad.model, {k: v.cuda() for k, v in batch.items()})
+        _, stats = stack.block_forward(block, x, cache, "hessian")
+    block0 = {}
+    for local in stack.linear_names:
+        w = block.get_submodule(local).weight.detach().to(torch.float32)
+        h = (2.0 / x.shape[0]) * stats[local].to(torch.float32)
+        r = sparsegpt_card_vs_cpu(torch, w, h, 0.5, local)
+        card = sparsegpt_prune_weight(w.double(), h.double(), 0.5)
+        cpu = sparsegpt_prune_weight(w.double().cpu(), h.double().cpu(), 0.5).cuda()
+        r["mask_share_f64"] = ((card == 0) != (cpu == 0)).float().mean().item()
+        assert r["mask_share_f64"] <= NEW_FAMILY_MASK_SHARE, (local, r)
+        block0[local] = r
+    return flips / total, block0
+
+
+def t5_xl_path(torch, cli, kernels, out_dir, read_flat_yaml):
+    """Phase 14; returns (counts, readings)."""
+    from ecoflap_tpu_torch.models import t5
+
+    pth_dir = tempfile.mkdtemp(prefix="chip_smoke_t5_")
+    try:
+        argv = ["--cfg-path", T5_CFG_PATH, "--options",
+                f"prune.num_data_first_stage={T5_FIRST_STAGE}",
+                "--output_dir", pth_dir, "--save_pruned_model"]
+        res, wall, counts = run_path(cli, kernels, argv)
+        log_path("FlanT5-XL standalone", res, wall, counts)
+        # no suffix plans: the serial in-place cycle, 3 launches a target
+        assert counts == {"perturb_inplace": 3 * T5_TARGETS * (T5_FIRST_STAGE // BATCH_SIZE),
+                          "perturb": 0, "flash_attention": 0,
+                          "flash_attention_bwd": 0}, counts
+        assert res["job_id"] == "t5_wanda_pruner_24-0.5-1.0-1.0_MEZO-GradOnly_avg_block", res
+        vals, sd = check_scores_and_dict(read_flat_yaml, res, T5_TARGETS, 0.6, 0.5)
+        assert res["peak_gib"] <= T5_PEAK_GIB, res["peak_gib"]
+        size, read_s = pth_round_trip(torch, res, t5, t5.flan_t5_xl())
+        info = {"wall": wall, "prune": res["wall_clock_s"], "peak": res["peak_gib"],
+                "scores": (min(vals), max(vals)), "max_ratio": max(sd.values()),
+                "sparsity": res["prunable_sparsity"], "pth_bytes": size,
+                "pth_write_s": res["pth_write_s"], "pth_read_s": read_s}
+        del res
+    finally:
+        shutil.rmtree(pth_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, info
+
+
+def mmlu_xl(torch, kernels, out_dir):
+    """Phase 15; returns (counts, readings)."""
+    import numpy as np
+
+    from ecoflap_tpu_torch.cli import evaluate as ev
+    from ecoflap_tpu_torch.data.calibration import HashTokenizer
+    from ecoflap_tpu_torch.models import t5
+    from ecoflap_tpu_torch.runners.runner import Runner
+    from ecoflap_tpu_torch.tasks import setup_task
+    from ecoflap_tpu_torch.tasks.mmlu import CHOICES, SUBCATEGORIES
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    t0 = time.time()
+    cli_res = ev.main(["--model", "t5", "--task", "mmlu", "--model_scale", "full",
+                       "--synthetic", "--seed", str(SEED), "--output_dir", out_dir])
+    cli_wall = time.time() - t0
+    assert 0.0 <= cli_res["acc/college_physics"] <= 1.0, cli_res
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = t5.build_model(t5.flan_t5_xl(), device="cuda", dtype=torch.bfloat16, seed=SEED)
+    tok = HashTokenizer(vocab_size=model.cfg.vocab_size)
+    abcd = [tok._word_id(c) for c in CHOICES]
+    # the task's own length budget: every prompt reaches the encoder whole
+    fn = ev.mmlu_logits_fn(model, tok, torch.device("cuda"), max_length=MMLU_MAX_TOKENS)
+    rng = np.random.default_rng(SEED)
+
+    words = np.array("the of which a is in that for energy law cell value state market "
+                     "theory force number set case group rate model function".split())
+
+    def text(lo, hi):
+        return " ".join(rng.choice(words, int(rng.integers(lo, hi + 1))))
+
+    # questions of MMLU_QUESTION_WORDS and choices of MMLU_CHOICE_WORDS words
+    def rows(subject, tag, n):
+        return [[f"{tag}{i} {text(*MMLU_QUESTION_WORDS)} {subject.replace('_', ' ')}?",
+                 *(text(*MMLU_CHOICE_WORDS) for _ in CHOICES),
+                 CHOICES[int(rng.integers(0, 4))]] for i in range(n)]
+
+    data = {s: {"dev": rows(s, "q", MMLU_SHOTS), "test": rows(s, "t", MMLU_TEST_PER_SUBJECT)}
+            for s in SUBCATEGORIES}
+    walls, logits, seen = [], [], []
+
+    def token_len(s):
+        return len(tok([s], max_length=10_000, pad=False)[0][0])
+
+    def recording(prompts):
+        t1 = time.time()
+        lg = fn(prompts).float().cpu()  # the one wait for the card
+        walls.append(time.time() - t1)
+        logits.append(lg)
+        seen.append(list(prompts))
+        return lg
+
+    task = setup_task("mmlu", recording, abcd, token_len_fn=token_len,
+                      max_tokens=MMLU_MAX_TOKENS)
+    runner = Runner(out_dir, "mmlu_xl_stream")
+    passes = []
+    for _ in range(2):
+        walls.clear()
+        logits.clear()
+        seen.clear()
+        t1 = time.time()
+        m = runner.evaluate(task, data)
+        wall = time.time() - t1
+        # no prompt was cut: the test question, last in each, reached the encoder
+        lengths = [[token_len(p) for p in batch] for batch in seen]
+        assert sum(map(len, lengths)) == len(SUBCATEGORIES) * MMLU_TEST_PER_SUBJECT
+        assert max(map(max, lengths)) <= MMLU_MAX_TOKENS, max(map(max, lengths))
+        assert all(bool(torch.isfinite(lg).all()) for lg in logits), "non-finite logits"
+        preds = torch.cat([lg[:, abcd].argmax(-1) for lg in logits])
+        passes.append((m, wall, list(walls), preds))
+    (m1, wall1, walls1, p1), (m2, _, _, p2) = passes
+    n = len(SUBCATEGORIES) * MMLU_TEST_PER_SUBJECT
+    assert p1.shape == (n,) and torch.equal(p1, p2), "MMLU predictions differ between passes"
+    assert all(0.0 <= v <= 1.0 for k, v in m1.items() if k.startswith("acc/")), m1
+    assert {k: v for k, v in m1.items() if k != "eval_time_s"} == \
+        {k: v for k, v in m2.items() if k != "eval_time_s"}
+    counts = read_counts(kernels)
+    assert not any(counts.values()), counts
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, {"cli": cli_res, "cli_wall": cli_wall, "agg": m1["agg_metrics"],
+                    "prompts": n, "wall": wall1, "walls": walls1,
+                    "prompts_per_s": n / wall1, "peak": peak,
+                    "tokens": (min(map(min, lengths)), sum(map(sum, lengths)) / n,
+                               max(map(max, lengths))),
+                    "padded": sum(map(max, lengths)) / len(lengths),
+                    "pred_counts": torch.bincount(p1, minlength=4).tolist()}
+
+
+def zero_shot_run(torch, kernels, model, prompts, num_classes, out_dir, tag):
+    """Zero-shot classification of ``model`` on the card: the classifier of
+    ``prompts`` (hash tokens), then ZS_BATCHES batches of ZS_BATCH synthetic
+    images through the task and ``Runner.evaluate``; counts read around it."""
+    import numpy as np
+
+    from ecoflap_tpu_torch.cli.evaluate import zero_shot_predict_fn
+    from ecoflap_tpu_torch.data.calibration import HashTokenizer
+    from ecoflap_tpu_torch.runners.runner import Runner
+    from ecoflap_tpu_torch.tasks import setup_task
+
+    reset_counts(kernels)
+    cfg = model.cfg
+    ids, _ = HashTokenizer(vocab_size=cfg.text.vocab_size)(
+        prompts, max_length=cfg.text.context_length)
+    ids = torch.from_numpy(ids).cuda()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    classifier = model.zero_shot_classifier(ids, num_classes)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    assert classifier.shape == (cfg.embed_dim, num_classes), classifier.shape
+    norms = classifier.float().norm(dim=0)
+    assert bool(torch.isfinite(norms).all()) and (norms - 1).abs().max().item() < 1e-2, norms
+    rng = np.random.default_rng(SEED)
+    img = cfg.img_size
+    batches = [{"image": rng.normal(size=(ZS_BATCH, img, img, 3)).astype(np.float32),
+                "label": rng.integers(0, num_classes, size=(ZS_BATCH,))}
+               for _ in range(ZS_BATCHES)]
+    predict = zero_shot_predict_fn(model, classifier, torch.device("cuda"))
+
+    def checked(batch):
+        lg = predict(batch)
+        assert lg.shape == (ZS_BATCH, num_classes) and bool(torch.isfinite(lg).all())
+        return lg
+
+    t0 = time.time()
+    m = Runner(out_dir, f"zero_shot_{tag}").evaluate(
+        setup_task("multimodal_classification", checked), batches)
+    wall = time.time() - t0
+    assert 0.0 <= m["agg_metrics"] <= 100.0, m
+    counts = read_counts(kernels)
+    assert not any(counts.values()), counts
+    return {"prompts": len(prompts), "build_s": build_s, "eval_wall": wall,
+            "images_per_s": ZS_BATCHES * ZS_BATCH / wall, "agg": m["agg_metrics"]}
+
+
+def eva_clip_path(torch, cli, kernels, out_dir, read_flat_yaml):
+    """Phase 16; returns (counts, readings)."""
+    from ecoflap_tpu_torch.data.prompts import OPENAI_IMAGENET_TEMPLATES, build_prompts
+    from ecoflap_tpu_torch.utils.checkpoint import load_torch_checkpoint
+
+    pth_dir = tempfile.mkdtemp(prefix="chip_smoke_eva_")
+    try:
+        argv = ["--cfg-path", EVA_CFG_PATH, "--options",
+                f"prune.num_data_first_stage={EVA_FIRST_STAGE}",
+                "--output_dir", pth_dir, "--save_pruned_model"]
+        res, wall, counts = run_path(cli, kernels, argv)
+        log_path("EVA-CLIP-g", res, wall, counts)
+        assert counts == {"perturb_inplace": 3 * EVA_TARGETS * (EVA_FIRST_STAGE // BATCH_SIZE),
+                          "perturb": 0, "flash_attention": 0,
+                          "flash_attention_bwd": 0}, counts
+        vals, sd = check_scores_and_dict(read_flat_yaml, res, EVA_TARGETS, 0.6, 0.5)
+        assert all(k.startswith("visual.blocks.") for k in sd), "EVA-CLIP prunes its visual tower"
+        assert res["peak_gib"] <= EVA_PEAK_GIB, res["peak_gib"]
+        # the export: the visual tower without block 39, every tensor the
+        # pruned model's
+        t0 = time.time()
+        state = load_torch_checkpoint(res["pth"])
+        own = res["model"].state_dict()
+        want = {k for k in own if k.startswith("visual.") and "blocks.39." not in k}
+        assert set(state) == want, sorted(set(state) ^ want)[:5]
+        bad = [k for k in want if not torch.equal(state[k], own[k].float().cpu())]
+        assert not bad, bad[:3]
+        read_s = time.time() - t0
+        info = {"wall": wall, "prune": res["wall_clock_s"], "peak": res["peak_gib"],
+                "scores": (min(vals), max(vals)), "max_ratio": max(sd.values()),
+                "sparsity": res["prunable_sparsity"], "pth_bytes": os.path.getsize(res["pth"]),
+                "pth_keys": len(state), "pth_write_s": res["pth_write_s"],
+                "pth_read_s": read_s}
+        del state, own
+        classnames = [f"synthetic class {i}" for i in range(ZS_CLASSES)]
+        info["zero_shot"] = zero_shot_run(
+            torch, kernels, res["model"], build_prompts(classnames, OPENAI_IMAGENET_TEMPLATES),
+            ZS_CLASSES, out_dir, "eva_clip")
+        del res
+    finally:
+        shutil.rmtree(pth_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, info
+
+
+def clip_path(torch, cli, kernels, out_dir, read_flat_yaml):
+    """Phase 17; returns (counts, readings)."""
+    from ecoflap_tpu_torch.data.coop import coop_prompts
+
+    argv = ["--model", "clip", "--model_scale", "full", "--seed", str(SEED),
+            "--pruning_method", "clip_wanda_pruner", "--prune_spec", "12-0.6-1.0-1.0",
+            "--sparsity_ratio_granularity", "block", "--score_method", "MEZO-GradOnly_sum",
+            "--max_sparsity_per_layer", "0.5", "--num_samples", str(CLIP_SAMPLES),
+            "--batch_size", str(CLIP_BATCH), "--num_data_first_stage", str(CLIP_SAMPLES),
+            "--output_dir", out_dir]
+    res, wall, counts = run_path(cli, kernels, argv)
+    log_path("CLIP ViT-B/16", res, wall, counts)
+    assert counts == {"perturb_inplace": 3 * CLIP_TARGETS * (CLIP_SAMPLES // CLIP_BATCH),
+                      "perturb": 0, "flash_attention": 0, "flash_attention_bwd": 0}, counts
+    vals, sd = check_scores_and_dict(read_flat_yaml, res, CLIP_TARGETS, 0.5, 0.4)
+    assert res["peak_gib"] <= CLIP_PEAK_GIB, res["peak_gib"]
+    info = {"wall": wall, "prune": res["wall_clock_s"], "peak": res["peak_gib"],
+            "scores": (min(vals), max(vals)), "max_ratio": max(sd.values()),
+            "sparsity": res["prunable_sparsity"]}
+    classnames = [f"synthetic class {i}" for i in range(ZS_CLASSES)]
+    info["zero_shot"] = zero_shot_run(torch, kernels, res["model"],
+                                      coop_prompts("imagenet", classnames), ZS_CLASSES,
+                                      out_dir, "clip")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, info
+
+
+def log_new_path(name, counts, info):
+    log(f"{name} path checks pass: launches {counts}, finite scores in "
+        f"[{info['scores'][0]:.4g}, {info['scores'][1]:.4g}], ratios <= "
+        f"{info['max_ratio']:.4f}, global sparsity {info['sparsity']}, peak "
+        f"{info['peak']:.2f} GiB"
+        + (f" | .pth {info['pth_bytes']} bytes, export and write {info['pth_write_s']:.2f} s,"
+           f" read back {info['pth_read_s']:.2f} s, every tensor equal"
+           if "pth_bytes" in info else "")
+        + (" | zero-shot: {prompts} prompts, classifier {build_s:.2f} s, {n} images in "
+           "{eval_wall:.2f} s ({images_per_s:.1f} a second), accuracy {agg}".format(
+               n=ZS_BATCHES * ZS_BATCH, **info["zero_shot"])
+           if "zero_shot" in info else ""))
+
+
 def reset_counts(kernels):
     for fn in kernels.values():
         fn.launches = 0
@@ -1723,6 +2230,9 @@ def main(argv=None) -> int:
                "flash_attention_bwd": A.flash_attention_bwd}
     t_start = time.time()
 
+    def phase_ended(n):
+        log(f"-- phase {n} ended {time.time() - t_start:.1f} s into the run")
+
     # -- 1. device and build --------------------------------------------------
     smi = nvidia_smi_line()
     log(f"device: {smi} | torch {torch.__version__} | CUDA {torch.version.cuda} "
@@ -1742,6 +2252,7 @@ def main(argv=None) -> int:
             if "Performance Loss" in line:  # e.g. wgmma serialised by ptxas
                 log(f"  {name}: {line.strip()}")
 
+    phase_ended(1)
     # -- 2. kernel vs plain ---------------------------------------------------
     worst_err, worst_ulp = 0.0, 0.0
     for dtype in (torch.bfloat16, torch.float32):
@@ -1788,9 +2299,10 @@ def main(argv=None) -> int:
         "that requires grad is served through the kernels; ineligible shapes and "
         "float32 are refused, forward and backward")
 
+    phase_ended(2)
     # -- 3. timing --------------------------------------------------------------
     timings = {}
-    for shape in sorted(set(XL_SHAPES + [RAGGED] + LLAMA_SHAPES)):
+    for shape in sorted(set(XL_SHAPES + [RAGGED] + LLAMA_SHAPES + CLIP_SHAPES)):
         t = time_perturb(P, torch, shape)
         timings[shape] = t
         b, by = bound(t)
@@ -1807,8 +2319,17 @@ def main(argv=None) -> int:
     p_bound, p_by = bound({"bytes_bound_ms": avg("bytes_bound_ms"),
                            "ops_bound_ms": avg("ops_bound_ms")})
     old_ops_ms = avg("ops_bound_ms") * PERTURB_OPS_ONE_ELEMENT_PER_CALL / PERTURB_OPS_PER_ELEMENT
-    log(f"perturb_inplace launch-weighted over phase 5's serial cycle "
-        f"({sum(weights['perturb_inplace'].values())} launches): kernel {avg('ms'):.4f} ms "
+    for path in serial_cycle_paths():
+        w = perturb_launch_weights([path])["perturb_inplace"]
+        pb, pby = bound({k: weighted(timings, w, k)
+                         for k in ("bytes_bound_ms", "ops_bound_ms")})
+        log(f"perturb_inplace launch-weighted over the {path} serial cycle "
+            f"({sum(w.values())} launches): kernel {weighted(timings, w, 'ms'):.4f} ms | "
+            f"bound {pb:.4f} ms ({pby}) | share of bound "
+            f"{pb / weighted(timings, w, 'ms'):.3f}")
+    log(f"perturb_inplace launch-weighted over the serial cycles of phases 5, 14, 16 "
+        f"and 17 ({sum(weights['perturb_inplace'].values())} launches): kernel "
+        f"{avg('ms'):.4f} ms "
         f"(through the wrapper {avg('wrapper_ms'):.4f} ms) | bound "
         f"{p_bound:.4f} ms ({p_by}, {PERTURB_OPS_PER_ELEMENT} operations an element) | "
         f"share of bound {p_bound / avg('ms'):.3f} | the former count "
@@ -1863,6 +2384,7 @@ def main(argv=None) -> int:
     from ecoflap_tpu_torch.cli import prune as cli
     from ecoflap_tpu_torch.runners.runner import read_flat_yaml
 
+    phase_ended(3)
     # -- 4. BLIP-2 path -----------------------------------------------------------
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     argv = ["--model", "blip2_t5", "--model_scale", "full", "--seed", str(SEED),
@@ -1889,6 +2411,7 @@ def main(argv=None) -> int:
         f"{res['prunable_sparsity']}")
     del res
 
+    phase_ended(4)
     # -- 5. LLaMA path -------------------------------------------------------------
     argv = ["--model", "llama", "--model_scale", "full", "--seed", str(SEED),
             "--pruning_method", "llama_wanda_pruner",
@@ -1896,19 +2419,19 @@ def main(argv=None) -> int:
             "--sparsity_ratio_granularity", "block",
             "--score_method", "MEZO-GradOnly_sum", "--max_sparsity_per_layer", "0.7",
             "--num_data_first_stage", str(LLAMA_FIRST_STAGE),
-            "--num_samples", str(NUM_SAMPLES), "--batch_size", str(BATCH_SIZE),
+            "--num_samples", str(LLAMA_SAMPLES), "--batch_size", str(LLAMA_BATCH),
             "--seqlen", str(LLAMA_SEQLEN), "--calib", "synthetic",
             "--output_dir", out_dir]
     res, wall, llama_counts = run_path(cli, kernels, argv)
     log_path("LLaMA-7B", res, wall, llama_counts)
     n_targets = 7 * LLAMA_LAYERS
-    llama_mb = LLAMA_FIRST_STAGE // BATCH_SIZE
+    llama_mb = LLAMA_FIRST_STAGE // LLAMA_BATCH
     # coarse: each target's +eps and -eps losses run blocks i..L-1, and the
     # suffix cache advances once through blocks 0..L-2; fine: per block, a
-    # statistics pass and a re-forward, each in NUM_SAMPLES / BATCH_SIZE
+    # statistics pass and a re-forward, each in LLAMA_SAMPLES / LLAMA_BATCH
     # chunks
     want_flash = (2 * 7 * sum(LLAMA_LAYERS - i for i in range(LLAMA_LAYERS)) * llama_mb
-                  + (LLAMA_LAYERS - 1) + 2 * LLAMA_LAYERS * (NUM_SAMPLES // BATCH_SIZE))
+                  + (LLAMA_LAYERS - 1) + 2 * LLAMA_LAYERS * (LLAMA_SAMPLES // LLAMA_BATCH))
     assert llama_counts["flash_attention"] == want_flash, (llama_counts, want_flash)
     assert llama_counts["perturb_inplace"] == 3 * n_targets * llama_mb, llama_counts
     assert llama_counts["perturb"] == 0, llama_counts
@@ -1921,16 +2444,17 @@ def main(argv=None) -> int:
         f"global sparsity {res['prunable_sparsity']}")
     del res
 
+    phase_ended(5)
     # -- 6. LLaMA first-order path ---------------------------------------------------
     argv[argv.index("--score_method") + 1] = "GradOnly_sum"
     argv[argv.index("--num_data_first_stage") + 1] = str(LLAMA_FO_FIRST_STAGE)
     res, wall, llama_fo_counts = run_path(cli, kernels, argv)
     log_path("LLaMA-7B first-order", res, wall, llama_fo_counts)
-    fo_mb = LLAMA_FO_FIRST_STAGE // BATCH_SIZE
+    fo_mb = LLAMA_FO_FIRST_STAGE // LLAMA_BATCH
     # coarse, per microbatch: the stack's forward and each block's recompute
     # under grad, and one backward per block; fine as in phase 5
     want_fo = {"flash_attention": 2 * LLAMA_LAYERS * fo_mb
-               + 2 * LLAMA_LAYERS * (NUM_SAMPLES // BATCH_SIZE),
+               + 2 * LLAMA_LAYERS * (LLAMA_SAMPLES // LLAMA_BATCH),
                "flash_attention_bwd": LLAMA_LAYERS * fo_mb, "perturb_inplace": 0,
                "perturb": 0}
     assert llama_fo_counts == want_fo, (llama_fo_counts, want_fo)
@@ -1945,6 +2469,7 @@ def main(argv=None) -> int:
         f"sparsity {res['prunable_sparsity']}, peak {res['peak_gib']:.2f} GiB")
     del res
 
+    phase_ended(6)
     # -- 7. BLIP-2 first-order path --------------------------------------------------
     argv = ["--model", "blip2_t5", "--model_scale", "full", "--seed", str(SEED),
             "--pruning_method", "blipt5_wanda_pruner",
@@ -1963,6 +2488,7 @@ def main(argv=None) -> int:
         f"global sparsity {res['prunable_sparsity']}, peak {res['peak_gib']:.2f} GiB")
     del res
 
+    phase_ended(7)
     # -- 8. BLIP-2 SparseGPT path from phase 4's dict -------------------------------
     argv = ["--model", "blip2_t5", "--model_scale", "full", "--seed", str(SEED),
             "--pruning_method", "blipt5_sparsegpt_pruner",
@@ -1997,6 +2523,7 @@ def main(argv=None) -> int:
             f"reconstruction error card {r['recon_card']:.6f}, CPU {r['recon_cpu']:.6f} "
             f"(gate {SPARSEGPT_XL_RECON_RTOL} relative), mask alone {r['recon_mask_only']:.6f}")
 
+    phase_ended(8)
     # -- 9. card vs CPU: the lane ensemble against the serial path, the global pruners
     from ecoflap_tpu_torch.core.device import exact_float32_matmuls
 
@@ -2058,9 +2585,29 @@ def main(argv=None) -> int:
     ppl_rel, ppl_launches = small_llama_ppl_check(torch, A)
     log(f"small LLaMA perplexity bf16 card ({ppl_launches} flash launches) vs f32 CPU: "
         f"log-ppl rel err {ppl_rel:.3e} (gate {LLAMA_LOSS_RTOL})")
+    nf = new_family_checks(torch, P, out_dir)
+    log(f"tiny standalone T5 card vs CPU, f32, from one --ckpt: zeroth-order "
+        f"(t5_wanda_pruner, block, eps {ENSEMBLE_EPS}; kernel 1 on the card) dicts within "
+        f"rtol {NEW_FAMILY_DICT_RTOL}, mask flip share "
+        f"{nf['t5_wanda_pruner_mask_flip_share']:.2e}; t5_sparsegpt_pruner on random ids "
+        f"mask flip share {nf['t5_sparsegpt_pruner_mask_flip_share']:.2e} (gates "
+        f"{NEW_FAMILY_MASK_SHARE}) | tiny CLIP contrastive loss rel L2 "
+        f"{nf['clip_loss_rel_l2']:.3e}, zero-shot logits {nf['clip_zero_shot_rel_l2']:.3e}; "
+        f"tiny EVA-CLIP {nf['eva_clip_loss_rel_l2']:.3e}, "
+        f"{nf['eva_clip_zero_shot_rel_l2']:.3e}; tiny T5 MMLU first-token logits "
+        f"{nf['mmlu_logits_rel_l2']:.3e} (gates {NEW_FAMILY_REL_L2})")
+    cli_flips, block0 = nf["t5_sparsegpt_cli_batch"]
+    log(f"tiny T5 t5_sparsegpt_pruner on the CLI's own batch, card vs CPU, f32: mask flip "
+        f"share {cli_flips:.4e} (a reading); encoder block 0 from one H per linear: " + "; ".join(
+            f"{k} H rank {r['rank']} of {r['size']}, eigenvalue ratio {r['eig_ratio']:.2e}, "
+            f"mask flips f32 {r['mask_share']:.4f}, f64 {r['mask_share_f64']:.4f} (gate "
+            f"{NEW_FAMILY_MASK_SHARE}), objective card {r['recon_card']:.6f} CPU "
+            f"{r['recon_cpu']:.6f} (gate {SPARSEGPT_XL_RECON_RTOL} relative)"
+            for k, r in block0.items()))
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase_ended(9)
     # -- 10. BLIP-2 global magnitude path, and its .pth -----------------------------
     pth_dir = tempfile.mkdtemp(prefix="chip_smoke_pth_")
     try:
@@ -2082,6 +2629,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase_ended(10)
     # -- 11. BLIP-2 global |W| |G| path --------------------------------------------
     argv = global_xl_argv("blipt5_global_gradmagabs_pruner", out_dir)
     res, wall, grad_counts = run_path(cli, kernels, argv)
@@ -2105,6 +2653,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase_ended(11)
     # -- 12. BLIP-2 FlanT5-XL evaluation: synthetic VQA, then generate's checks --
     from ecoflap_tpu_torch.cli import evaluate as ev
     from ecoflap_tpu_torch.models import blip2 as blip2_mod
@@ -2168,6 +2717,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase_ended(12)
     # -- 13. LLaMA-7B WikiText perplexity -----------------------------------------
     torch.cuda.reset_peak_memory_stats()
     reset_counts(kernels)
@@ -2201,13 +2751,50 @@ def main(argv=None) -> int:
         f"{long_wall:.1f} s incl. model init | eval {long_ppl['eval_time_s']} s | ppl "
         f"{long_ppl['ppl']:.6g}; peak {ppl_peak:.2f} GiB | launches {ppl_counts}")
 
-    for k in ("perturb_inplace", "perturb"):
-        assert sum(weights[k].values()) == blip_counts[k] + llama_counts[k], k
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase_ended(13)
+    # -- 14. standalone FlanT5-XL, through --cfg-path ---------------------------------
+    t5_counts, t5_info = t5_xl_path(torch, cli, kernels, out_dir, read_flat_yaml)
+    log_new_path("FlanT5-XL standalone (ECoFLaP zeroth-order + Wanda, --cfg-path "
+                 f"{T5_CFG_PATH})", t5_counts, t5_info)
+
+    phase_ended(14)
+    # -- 15. FlanT5-XL MMLU -----------------------------------------------------------
+    mmlu_counts, mm = mmlu_xl(torch, kernels, out_dir)
+    log(f"FlanT5-XL MMLU: the CLI (synthetic, college_physics, 8 questions) "
+        f"{mm['cli_wall']:.1f} s incl. model init, {mm['cli']}; then {mm['prompts']} "
+        f"prompts ({MMLU_SHOTS} shots, 57 subjects x {MMLU_TEST_PER_SUBJECT}; "
+        f"{mm['tokens'][0]}-{mm['tokens'][2]} tokens, mean {mm['tokens'][1]:.1f}, none cut "
+        f"at {MMLU_MAX_TOKENS}, a batch padded to its longest, mean {mm['padded']:.1f}) through "
+        f"MMLUTask and Runner.evaluate: {mm['wall']:.2f} s, {mm['prompts_per_s']:.1f} "
+        f"prompts a second, batch walls {min(mm['walls']):.4f}-{max(mm['walls']):.4f} s, "
+        f"agg_metrics {mm['agg']}, predictions A-D {mm['pred_counts']}, the same over two "
+        f"passes, finite logits; peak {mm['peak']:.2f} GiB | launches {mmlu_counts}")
+
+    phase_ended(15)
+    # -- 16. EVA-CLIP-g, through --cfg-path, and its zero-shot classifier -----------
+    eva_counts, eva_info = eva_clip_path(torch, cli, kernels, out_dir, read_flat_yaml)
+    log_new_path(f"EVA-CLIP-g (--cfg-path {EVA_CFG_PATH})", eva_counts, eva_info)
+
+    phase_ended(16)
+    # -- 17. CLIP ViT-B/16, the CoOp launcher's second loop ---------------------------
+    clip_counts, clip_info = clip_path(torch, cli, kernels, out_dir, read_flat_yaml)
+    log_new_path("CLIP ViT-B/16 (scripts/coop/ecoflap_wanda.sh)", clip_counts, clip_info)
+
+    phase_ended(17)
+    serial = (llama_counts, t5_counts, eva_counts, clip_counts)
+    assert sum(weights["perturb_inplace"].values()) == sum(
+        c["perturb_inplace"] for c in serial) + blip_counts["perturb_inplace"]
+    assert sum(weights["perturb"].values()) == blip_counts["perturb"] + sum(
+        c["perturb"] for c in serial)
     paths = {"blip2_t5": blip_counts, "llama": llama_counts,
              "llama_first_order": llama_fo_counts, "blip2_t5_first_order": blip_fo_counts,
              "blip2_t5_sparsegpt": sgpt_counts, "blip2_t5_global_mag": mag_counts,
              "blip2_t5_global_gradmagabs": grad_counts, "blip2_t5_eval_vqa": eval_counts,
-             "llama_wikitext_ppl": ppl_counts}
+             "llama_wikitext_ppl": ppl_counts, "t5": t5_counts, "t5_mmlu": mmlu_counts,
+             "eva_clip": eva_counts, "clip": clip_counts}
     by_path = {k: {p: c[k] for p, c in paths.items()} for k in kernels}
     launches = {k: sum(by_path[k].values()) for k in kernels}
     log(json.dumps({"kernels": [

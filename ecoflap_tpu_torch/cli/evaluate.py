@@ -1,7 +1,9 @@
-"""Evaluation CLI for BLIP-2 FlanT5 and LLaMA (port of the blip2_t5 and llama
-branches of ``ecoflap_tpu/cli/evaluate.py``; reference evaluate_blip.py:
-345-491 and LLaMA/main.py:89-90). The JAX CLI's flags, so a pruned ``.pth``
-from ``ecoflap_tpu_torch.cli.prune --save_pruned_model`` evaluates as
+"""Evaluation CLI for BLIP-2 FlanT5, LLaMA, standalone FlanT5 (MMLU) and
+CLIP / EVA-CLIP (zero-shot classification); port of those branches of
+``ecoflap_tpu/cli/evaluate.py`` (reference evaluate_blip.py:345-491,
+LLaMA/main.py:89-90, mmlu_eval/evaluate_flan.py, CoOp/trainers/zsclip.py).
+The JAX CLI's flags, so a pruned ``.pth`` from
+``ecoflap_tpu_torch.cli.prune --save_pruned_model`` evaluates as
 
   python -m ecoflap_tpu_torch.cli.evaluate --model blip2_t5 --task vqa \\
       --model_scale full --checkpoint output/pruned_checkpoint/<job>.pth \\
@@ -22,16 +24,33 @@ perplexity on a random stream of 64 x 32 tokens:
   python -m ecoflap_tpu_torch.cli.evaluate --model llama \\
       --task wikitext_ppl --model_scale full --synthetic --seqlen 2048
 
-A ``.pth`` loads in bf16 whatever ``--dtype`` says, as the JAX CLI converts
-it (evaluate.py:604-607). Runs on the card unless ``--device cpu``; the
-result is one JSON line. Other model/task pairs are not ported yet
-(ROADMAP.md, section 1).
+FlanT5's synthetic MMLU reads the first decoder step's logits at the ids of
+A/B/C/D for 8 random questions of ``college_physics`` (5 shots, hash-token
+prompts cut at 64 tokens); CLIP's synthetic zero-shot classification builds
+the tiny model, as the JAX CLI does, whatever ``--model_scale`` says.
+Zero-shot classification on an image folder (``--vis_root``) builds the
+classifier from ``--prompt_templates`` (``full``: the 80 OpenAI ImageNet
+templates; ``coop``: the dataset's CoOp prompt):
+
+  python -m ecoflap_tpu_torch.cli.evaluate --model t5 --task mmlu \
+      --model_scale full --synthetic
+  python -m ecoflap_tpu_torch.cli.evaluate --cfg-path clip/exp_imnet_zs_eval.yaml \
+      --vis_root <imagenet val folder> --checkpoint <pruned clip .pth> \
+      --prompt_templates coop
+
+A project YAML (``--cfg-path``, ``--options``) sets the flags as in the
+prune CLI. A BLIP-2 ``.pth`` loads in bf16 whatever ``--dtype`` says, as the
+JAX CLI converts it (evaluate.py:604-607); a T5 or CLIP ``.pth`` (the JAX
+CLI reads an orbax directory there) loads in the ``--dtype``. Runs on the
+card unless ``--device cpu``; the result is one JSON line. Other model/task
+pairs are not ported yet (ROADMAP.md, section 1).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 from typing import Any, Dict
 
@@ -40,9 +59,15 @@ import torch
 
 
 def build_parser() -> argparse.ArgumentParser:
+    # allow_abbrev=False: --cfg-path's precedence reads the typed flags
     p = argparse.ArgumentParser(description="ECoFLaP evaluation (PyTorch/CUDA)",
                                 allow_abbrev=False)
-    p.add_argument("--model", required=True,
+    p.add_argument("--cfg-path", dest="cfg_path", default=None,
+                   help="project YAML (bare names resolve under "
+                        "configs/projects/); explicit flags override the file")
+    p.add_argument("--options", nargs="*", default=None,
+                   help="dot-list overrides, e.g. run.batch_size_eval=16")
+    p.add_argument("--model", default=None,
                    choices=["blip2_t5", "blip2_opt", "blip2_qformer", "t5", "eva_clip",
                             "clip", "llama", "blip1", "deit", "convnext"])
     p.add_argument("--model_scale", default="tiny", choices=["tiny", "small", "full"],
@@ -53,7 +78,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default="auto", choices=["auto", "float32", "bfloat16"],
                    help="weight dtype of a random init; auto = bf16 for small/full, "
                         "f32 for tiny (a .pth always loads in bf16)")
-    p.add_argument("--task", required=True,
+    p.add_argument("--task", default=None,
                    choices=["vqa", "gqa", "captioning", "classification", "retrieval",
                             "nlvr", "mmlu", "wikitext_ppl"])
     p.add_argument("--tokenizer_path", default=None,
@@ -61,6 +86,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint", default=None, help="a reference-named torch .pth")
     p.add_argument("--ann", default=None, help="annotation json")
     p.add_argument("--vis_root", default="")
+    p.add_argument("--prompt_templates", default="full",
+                   choices=("full", "subset", "simple", "coop"),
+                   help="zero-shot classifier prompts: full = the 80 OpenAI "
+                        "ImageNet templates, subset = 7 of them, simple = one, "
+                        "coop = the dataset's CoOp template (zsclip.py:13-43)")
+    p.add_argument("--dataset", default="imagenet",
+                   help="classification image-folder builder: imagenet, "
+                        "cifar100 or any of the 11 CoOp dataset names")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--eval_batches", type=int, default=2,
@@ -87,6 +120,25 @@ def _not_ported(args, where: str):
     return NotImplementedError(
         f"{args.model}/{args.task} {where} evaluation is not ported to "
         "ecoflap_tpu_torch yet (ROADMAP.md, section 1)")
+
+
+def _load_pth(model, path: str) -> None:
+    from ecoflap_tpu_torch.utils.checkpoint import load_into, load_torch_checkpoint
+
+    if not path.endswith(".pth"):
+        raise ValueError(f"--checkpoint {path!r}: the port reads a torch .pth "
+                         "(orbax directories are the JAX package's)")
+    load_into(model, load_torch_checkpoint(path))
+
+
+def _model(mod, cfg, args, device, dtype):
+    """``mod.build_model`` from ``--checkpoint`` (a ``.pth``, in ``dtype``) or
+    the random init at ``--seed``."""
+    model = mod.build_model(cfg, device=device, dtype=dtype,
+                            seed=None if args.checkpoint else args.seed)
+    if args.checkpoint:
+        _load_pth(model, args.checkpoint)
+    return model
 
 
 def _synthetic_eval(args, device: torch.device, dtype: torch.dtype) -> Dict[str, Any]:
@@ -147,7 +199,68 @@ def _synthetic_eval(args, device: torch.device, dtype: torch.dtype) -> Dict[str,
             metrics["steady_qps"] = round(args.batch_size * len(steady) / sum(steady), 3)
         return metrics
 
+    if args.model in ("clip", "eva_clip") and args.task == "classification":
+        from ecoflap_tpu_torch.models import clip
+
+        # the JAX CLI's smoke run: the tiny float32 model at any scale
+        # (evaluate.py:500-526), 10 random prompts, 2 batches
+        cfg = clip.tiny_config(eva=args.model == "eva_clip")
+        model = _model(clip, cfg, args, device, torch.float32)
+        prompts = rng.integers(1, cfg.text.vocab_size, size=(10, cfg.text.context_length))
+        classifier = model.zero_shot_classifier(torch.from_numpy(prompts).to(device), 10)
+        img = cfg.img_size
+        batches = [{
+            "image": rng.normal(size=(args.batch_size, img, img, 3)).astype(np.float32),
+            "label": rng.integers(0, 10, size=(args.batch_size,)),
+        } for _ in range(2)]
+        return runner.evaluate(setup_task("multimodal_classification",
+                                          zero_shot_predict_fn(model, classifier, device)),
+                               batches)
+
+    if args.model == "t5" and args.task == "mmlu":
+        from ecoflap_tpu_torch.models import t5
+
+        model = _model(t5, t5.config_for_scale(args.model_scale), args, device, dtype)
+        tok = HashTokenizer(vocab_size=model.cfg.vocab_size)
+        abcd = [tok._word_id(c) for c in "ABCD"]
+        dev = [[f"q{i}", "w", "x", "y", "z", "B"] for i in range(5)]
+        test = [[f"t{i}", "w", "x", "y", "z", "ABCD"[rng.integers(0, 4)]]
+                for i in range(8)]
+        task = setup_task("mmlu", mmlu_logits_fn(model, tok, device), abcd,
+                          token_len_fn=lambda s: len(tok([s], max_length=10_000,
+                                                         pad=False)[0][0]),
+                          max_tokens=2048)
+        return runner.evaluate(task, {"college_physics": {"dev": dev, "test": test}})
+
     raise _not_ported(args, "synthetic")
+
+
+def mmlu_logits_fn(model, tok, device, max_length: int = 64):
+    """prompts -> (B, vocab) float32 first-token logits of the T5 ``model``,
+    prompts tokenized by ``tok`` and cut at ``max_length`` tokens
+    (evaluate.py:560-571). The columns that are padding in every row are
+    dropped: the encoder masks them, so the logits are those of the
+    ``max_length`` batch, at the cost of the longest prompt."""
+    @torch.inference_mode()
+    def first_token_logits(prompts):
+        ids, mask = tok(prompts, max_length=max_length)
+        n = max(int(mask.sum(1).max()), 1)
+        return model.first_token_logits(torch.from_numpy(ids[:, :n]).to(device),
+                                        torch.from_numpy(mask[:, :n]).to(device))
+
+    return first_token_logits
+
+
+def zero_shot_predict_fn(model, classifier, device):
+    """batch -> (B, C) float32 zero-shot logits of ``batch["image"]``."""
+    w = next(model.parameters())
+
+    @torch.inference_mode()
+    def predict(batch):
+        return model.predict(torch.from_numpy(batch["image"]).to(device, w.dtype),
+                             classifier)
+
+    return predict
 
 
 def _real_eval(args, device: torch.device, dtype: torch.dtype) -> Dict[str, Any]:
@@ -160,22 +273,18 @@ def _real_eval(args, device: torch.device, dtype: torch.dtype) -> Dict[str, Any]
     from ecoflap_tpu_torch.runners.runner import Runner
     from ecoflap_tpu_torch.tasks import setup_task
 
+    runner = Runner(args.output_dir, f"eval_{args.model}_{args.task}")
+    if args.model in ("clip", "eva_clip") and args.task == "classification":
+        return runner.evaluate(*_zero_shot_setup(args, device, dtype))
     if not (args.model == "blip2_t5" and args.task in ("vqa", "gqa", "captioning")):
         raise _not_ported(args, "real-data")
     from ecoflap_tpu_torch.models import blip2
     from ecoflap_tpu_torch.models.generation import GenerateConfig
-    from ecoflap_tpu_torch.utils.checkpoint import load_into, load_torch_checkpoint
 
-    runner = Runner(args.output_dir, f"eval_{args.model}_{args.task}")
     cfg = blip2.config_for_scale(args.model_scale, args.vocab_size)
-    if args.checkpoint:
-        if not args.checkpoint.endswith(".pth"):
-            raise ValueError(f"--checkpoint {args.checkpoint!r}: the port reads a "
-                             "torch .pth (orbax directories are the JAX package's)")
-        model = blip2.build_model(cfg, device=device, dtype=torch.bfloat16, seed=None)
-        load_into(model, load_torch_checkpoint(args.checkpoint))
-    else:
-        model = blip2.build_model(cfg, device=device, dtype=dtype, seed=args.seed)
+    # a .pth loads in bf16, as the JAX CLI converts it
+    model = _model(blip2, cfg, args, device,
+                   torch.bfloat16 if args.checkpoint else dtype)
     tok = load_t5_tokenizer(vocab_size=cfg.t5.vocab_size, path=args.tokenizer_path)
     gen = GenerateConfig(max_new_tokens=args.max_new_tokens, num_beams=args.num_beams,
                          length_penalty=args.length_penalty)
@@ -201,12 +310,50 @@ def _real_eval(args, device: torch.device, dtype: torch.dtype) -> Dict[str, Any]
     return runner.evaluate(task, batches)
 
 
+def _zero_shot_setup(args, device, dtype):
+    """(task, batches) of CLIP or EVA-CLIP zero-shot classification on an
+    image folder (evaluate.py:653-701): the ``--dataset`` builder, the
+    classifier from ``--prompt_templates`` in hash tokens, batches of
+    ``--batch_size`` without the last partial one."""
+    from ecoflap_tpu_torch.core.registry import registry
+    from ecoflap_tpu_torch.data import datasets
+    from ecoflap_tpu_torch.data.calibration import HashTokenizer
+    from ecoflap_tpu_torch.data.processors import ImageEvalProcessor
+    from ecoflap_tpu_torch.data.prompts import TEMPLATE_SETS, build_prompts
+    from ecoflap_tpu_torch.models import clip
+    from ecoflap_tpu_torch.tasks import setup_task
+
+    cfg = clip.config_for_scale(args.model_scale, args.model == "eva_clip")
+    model = _model(clip, cfg, args, device, dtype)
+    ds = registry.get("builder", args.dataset)(
+        {"vis_root": args.vis_root},
+        vis_processor=ImageEvalProcessor(image_size=cfg.img_size))
+    if args.prompt_templates == "coop":
+        from ecoflap_tpu_torch.data.coop import coop_prompts
+
+        prompts = coop_prompts(args.dataset, ds.classnames)
+    else:
+        prompts = build_prompts(ds.classnames, TEMPLATE_SETS[args.prompt_templates])
+    ids, _ = HashTokenizer(vocab_size=cfg.text.vocab_size)(
+        prompts, max_length=cfg.text.context_length)
+    classifier = model.zero_shot_classifier(torch.from_numpy(ids).to(device),
+                                            len(ds.classnames))
+    task = setup_task("multimodal_classification",
+                      zero_shot_predict_fn(model, classifier, device))
+    return task, list(datasets.batch_iterator(ds, args.batch_size, drop_last=True))
+
+
 def main(argv=None) -> Dict[str, Any]:
     """Evaluate, print the metrics as one JSON line and return them."""
     from ecoflap_tpu_torch.core.device import (exact_float32_matmuls, resolve_device,
                                                weight_dtype)
+    from ecoflap_tpu_torch.core.project import apply_cfg_path
 
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    apply_cfg_path(args, sys.argv[1:] if argv is None else argv)
+    if not args.model or not args.task:
+        parser.error("--model and --task are required (directly or through --cfg-path)")
     device = resolve_device(args.device)
     # TF32 off: float32 runs compute what the JAX package computes
     exact_float32_matmuls()

@@ -1,5 +1,6 @@
-"""Prune CLI for BLIP-2 FlanT5 and LLaMA (port of the blip2_t5 and llama
-branches of ``ecoflap_tpu/cli/prune.py``). The reference flag names, so
+"""Prune CLI for BLIP-2 FlanT5, LLaMA, standalone FlanT5, CLIP and EVA-CLIP
+(port of the blip2_t5, llama, t5 and clip/eva_clip branches of
+``ecoflap_tpu/cli/prune.py``). The reference flag names, so
 ``scripts/blip2/ecoflap_zeroth.py``'s and ``scripts/llama/ecoflap_zero.sh``'s
 arguments carry over:
 
@@ -56,34 +57,69 @@ writes ``pruned_checkpoint/<job>.pth``):
 the coarse stage's sparsity dict and stops; ``--ckpt`` starts from a
 reference-named ``.pth`` instead of the random init.
 
+A project YAML under ``configs/projects/`` gives a run in one file
+(``--cfg-path``; ``--options`` overrides its keys, explicit flags override
+both): ``scripts/t5/ecoflap.py``, ``scripts/eva_clip/ecoflap.py`` and the
+CoOp launcher's CLIP prune are
+
+  python -m ecoflap_tpu_torch.cli.prune --cfg-path t5/c4_prefix_derivative_compute.yaml
+  python -m ecoflap_tpu_torch.cli.prune --cfg-path eva_clip/ecoflap.yaml \
+      --options prune.num_data_first_stage=16
+  python -m ecoflap_tpu_torch.cli.prune --model clip --model_scale full \
+      --pruning_method clip_wanda_pruner --prune_spec 12-0.6-1.0-1.0 \
+      --sparsity_ratio_granularity block --score_method MEZO-GradOnly_sum \
+      --max_sparsity_per_layer 0.5 --num_samples 64 --batch_size 16 \
+      --num_data_first_stage 64 --save_pruned_model
+
+(CLIP and EVA-CLIP calibrate on random images and text ids, or with
+``--calib <image folder> --dataset <CoOp name>`` on the folder's images and
+their class's CoOp prompt; the EVA-CLIP ``.pth`` holds the visual tower
+without its last block, as the reference exports it).
+
 The MeZO coarse stage scores BLIP-2's targets a block at a time by the lane
-ensemble and LLaMA's by the serial in-place cycle; ``--mezo_ensemble 1`` or
-``0`` sends every model one way.
+ensemble and LLaMA's by the serial in-place cycle; standalone T5 and CLIP
+have no suffix plans, so every target goes the serial way.
+``--mezo_ensemble 1`` or ``0`` sends every planned model one way.
 
 Runs on the card unless ``--device cpu``. Without ``--ckpt`` the model is
 randomly initialised from ``--seed`` at ``--model_scale``; calibration is
-synthetic (for LLaMA the JAX CLI's token stream, so both CLIs cut the same
-windows for one seed).
+synthetic unless said above (the JAX CLI's draws for one seed: LLaMA's token
+stream, T5's random words, CLIP's images and ids).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 from typing import Any, Dict
 
+import numpy as np
 import torch
+
+# the JAX CLI's --model choices; the ported families, the rest raise
+MODELS = ("blip2_t5", "t5", "eva_clip", "clip", "llama", "deit", "convnext")
+PORTED = ("blip2_t5", "t5", "eva_clip", "clip", "llama")
 
 
 def build_parser() -> argparse.ArgumentParser:
+    # allow_abbrev=False: --cfg-path's precedence reads the typed flags
     p = argparse.ArgumentParser(description="ECoFLaP pruning (PyTorch/CUDA)",
                                 allow_abbrev=False)
-    p.add_argument("--model", required=True, choices=["blip2_t5", "llama"])
+    p.add_argument("--cfg-path", dest="cfg_path", default=None,
+                   help="project YAML (bare names resolve under "
+                        "configs/projects/): model/run trees and a prune: tree "
+                        "of the flags below; explicit flags override the file")
+    p.add_argument("--options", nargs="*", default=None,
+                   help="dot-list overrides of the YAML, e.g. "
+                        "prune.num_data_first_stage=8")
+    p.add_argument("--model", default=None, choices=MODELS)
     p.add_argument("--model_scale", default="tiny",
                    choices=["tiny", "small", "full"],
-                   help="tiny = test shapes; small = ViT-B + flan-t5-base or "
-                        "OpenLLaMA-3B; full = EVA ViT-g + FlanT5-XL or LLaMA-7B")
+                   help="tiny = test shapes; small = the mid-scale presets; full "
+                        "= EVA ViT-g + FlanT5-XL, LLaMA-7B, FlanT5-XL, CLIP "
+                        "ViT-B/16 or EVA-CLIP-g")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--dtype", default="auto", choices=["auto", "float32", "bfloat16"],
@@ -97,7 +133,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prune_spec", default=None,
                    help="llama: the spec of model.layers; blip2_t5: the T5 "
                         "stacks' unless --t5_prune_spec, and every stack's "
-                        "without a spec of its own")
+                        "without a spec of its own; t5, clip, eva_clip: every "
+                        "stack's")
     p.add_argument("--seqlen", type=int, default=2048,
                    help="llama calibration window (32 at --model_scale tiny)")
     p.add_argument("--sparsity_ratio_granularity", default=None,
@@ -130,7 +167,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--iteration", type=int, default=1)
     p.add_argument("--coarse_only", action="store_true",
                    help="write the coarse stage's sparsity dict and stop")
-    p.add_argument("--calib", default="synthetic", choices=["synthetic"])
+    p.add_argument("--calib", default="synthetic",
+                   help="synthetic, or for clip/eva_clip an image-folder root "
+                        "(class subdirectories)")
+    p.add_argument("--dataset", default="imagenet",
+                   help="clip/eva_clip --calib: the folder's builder and CoOp "
+                        "prompt template (any of the 11 CoOp dataset names)")
     p.add_argument("--num_samples", type=int, default=128)
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--output_dir", default="output")
@@ -150,11 +192,19 @@ def _load_ckpt(model, path: str) -> None:
           f"ignored {ignored} keys the model does not have")
 
 
+def _synthetic_only(args) -> None:
+    if args.calib != "synthetic":
+        raise NotImplementedError(
+            f"--calib {args.calib!r}: {args.model} calibrates on synthetic data only "
+            "in ecoflap_tpu_torch (real calibration files wait; ROADMAP.md)")
+
+
 def _blip2(args, device, dtype):
     """(adapter, batch, microbatches, stack specs)."""
     from ecoflap_tpu_torch.data import calibration as cal
     from ecoflap_tpu_torch.models import blip2
 
+    _synthetic_only(args)
     cfg = blip2.config_for_scale(args.model_scale)
     model = blip2.build_model(cfg, device=device, dtype=dtype,
                               seed=None if args.ckpt else args.seed)
@@ -179,6 +229,7 @@ def _llama(args, device, dtype):
     from ecoflap_tpu_torch.data import calibration as cal
     from ecoflap_tpu_torch.models import llama
 
+    _synthetic_only(args)
     cfg = llama.config_for_scale(args.model_scale)
     seqlen = args.seqlen if args.model_scale in ("full", "small") else 32
     model = llama.build_model(cfg, device=device, dtype=dtype,
@@ -194,6 +245,80 @@ def _llama(args, device, dtype):
             max(1, args.num_samples // args.batch_size), stack_specs)
 
 
+def _t5(args, device, dtype):
+    """Standalone FlanT5 on the C4-style prefix-LM batch of the JAX CLI's
+    random words (cli/prune.py:265-297)."""
+    from ecoflap_tpu_torch.data import calibration as cal
+    from ecoflap_tpu_torch.models import t5
+
+    _synthetic_only(args)
+    cfg = t5.config_for_scale(args.model_scale)
+    model = t5.build_model(cfg, device=device, dtype=dtype,
+                           seed=None if args.ckpt else args.seed)
+    if args.ckpt:
+        _load_ckpt(model, args.ckpt)
+    spec = cal.CalibrationSpec(args.num_samples, args.batch_size)
+    texts = [" ".join(np.random.default_rng(args.seed + i)
+                      .choice(["the", "a", "dog", "cat", "run"], 20))
+             for i in range(args.num_samples)]
+    batch = cal.build_text_calibration_batch(
+        texts, cal.HashTokenizer(vocab_size=cfg.vocab_size), spec, args.seed)
+    stack_specs = {}
+    if args.prune_spec:
+        stack_specs = {"encoder.block": args.prune_spec,
+                       "decoder.block": args.prune_spec}
+    return t5.make_adapter(model), batch, spec.num_microbatches, stack_specs
+
+
+def _clip(args, device, dtype):
+    """CLIP ViT-B/16 or EVA-CLIP-g on the contrastive loss
+    (cli/prune.py:299-370): random images, text ids ending in the last id and
+    labels of 10 classes, or an image folder with its CoOp prompts
+    (trainers/zsclip.py:72-90). EVA-CLIP prunes its visual tower only."""
+    from ecoflap_tpu_torch.models import clip
+
+    eva = args.model == "eva_clip"
+    cfg = clip.config_for_scale(args.model_scale, eva)
+    model = clip.build_model(cfg, device=device, dtype=dtype,
+                             seed=None if args.ckpt else args.seed)
+    if args.ckpt:
+        _load_ckpt(model, args.ckpt)
+    n, img, ctx = args.num_samples, cfg.img_size, cfg.text.context_length
+    if args.calib != "synthetic":
+        from ecoflap_tpu_torch.core.registry import registry
+        from ecoflap_tpu_torch.data import datasets  # noqa: F401 (registers builders)
+        from ecoflap_tpu_torch.data.calibration import HashTokenizer
+        from ecoflap_tpu_torch.data.coop import COOP_TEMPLATES, coop_prompts
+        from ecoflap_tpu_torch.data.processors import ImageEvalProcessor
+
+        folder = registry.get("builder", args.dataset)(
+            {"vis_root": args.calib}, vis_processor=ImageEvalProcessor(image_size=img))
+        items = [folder[i % len(folder)] for i in range(n)]
+        labels = [it["label"] for it in items]
+        per_class = coop_prompts(args.dataset if args.dataset in COOP_TEMPLATES
+                                 else "imagenet", folder.classnames)
+        ids, _ = HashTokenizer(vocab_size=cfg.text.vocab_size)(
+            [per_class[lab] for lab in labels], max_length=ctx)
+        images = np.stack([it["image"] for it in items])
+    else:
+        rng = np.random.default_rng(args.seed)
+        ids = rng.integers(1, cfg.text.vocab_size, size=(n, ctx))
+        ids[:, -1] = cfg.text.vocab_size - 1
+        images = rng.normal(size=(n, img, img, 3))
+        labels = rng.integers(0, 10, size=(n,))
+    batch = {"image": torch.from_numpy(np.asarray(images)).to(dtype),
+             "text_ids": torch.from_numpy(np.asarray(ids, np.int64)),
+             "label": torch.from_numpy(np.asarray(labels, np.int64))}
+    adapter = clip.make_adapter(model, include_text=not eva)
+    stack_specs = ({s.name: args.prune_spec for s in adapter.stacks}
+                   if args.prune_spec else {})
+    return adapter, batch, max(1, n // args.batch_size), stack_specs
+
+
+SETUPS = {"blip2_t5": _blip2, "llama": _llama, "t5": _t5, "clip": _clip,
+          "eva_clip": _clip}
+
+
 def main(argv=None) -> Dict[str, Any]:
     """Prune and print the result JSON line, which holds the run's
     ``phase_times`` (s) and ``peak_gib`` too (and with ``--save_pruned_model``
@@ -204,12 +329,22 @@ def main(argv=None) -> Dict[str, Any]:
     JAX CLI's short result (job id, wall, dict path) and stops."""
     from ecoflap_tpu_torch.core.device import (exact_float32_matmuls, resolve_device,
                                                weight_dtype)
+    from ecoflap_tpu_torch.core.project import apply_cfg_path
     from ecoflap_tpu_torch.core.spec import parse_prune_spec
     from ecoflap_tpu_torch.pruning.loader import load_pruner
     from ecoflap_tpu_torch.runners.runner import Runner, global_sparsity
-    from ecoflap_tpu_torch.utils.checkpoint import export_state_dict
+    from ecoflap_tpu_torch.utils.checkpoint import (export_eva_clip_visual,
+                                                    export_state_dict)
 
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    apply_cfg_path(args, sys.argv[1:] if argv is None else argv, prune=True)
+    if not args.model:
+        parser.error("--model is required (directly or through --cfg-path)")
+    if args.model not in PORTED:
+        raise NotImplementedError(
+            f"--model {args.model}: pruning is not ported to ecoflap_tpu_torch yet "
+            "(ROADMAP.md, section 1)")
     prune_n = prune_m = 0
     if args.sparsity_type != "unstructured" and ":" in args.sparsity_type:
         prune_n, prune_m = map(int, args.sparsity_type.split(":"))
@@ -221,8 +356,8 @@ def main(argv=None) -> Dict[str, Any]:
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
-    setup = _llama if args.model == "llama" else _blip2
-    adapter, batch, num_microbatches, stack_specs = setup(args, device, dtype)
+    adapter, batch, num_microbatches, stack_specs = SETUPS[args.model](args, device,
+                                                                       dtype)
     batch = {k: t.to(device) for k, t in batch.items()}
 
     job_id = args.job_id or (
@@ -293,7 +428,8 @@ def main(argv=None) -> Dict[str, Any]:
     }
     if args.save_pruned_model:
         ts = time.time()
-        result["pth"] = runner.save_pruned_torch(export_state_dict(model), job_id)
+        export = export_eva_clip_visual if args.model == "eva_clip" else export_state_dict
+        result["pth"] = runner.save_pruned_torch(export(model), job_id)
         result["pth_write_s"] = time.time() - ts
     print(json.dumps(result))
     return {**result, "leaf_scores": dict(pruner.leaf_scores), "model": model,

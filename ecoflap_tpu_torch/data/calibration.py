@@ -241,6 +241,30 @@ def build_vl_calibration_batch(samples: Iterable[Dict[str, Any]], tokenizer,
     }
 
 
+def build_text_calibration_batch(texts: Iterable[str], tokenizer,
+                                 spec: CalibrationSpec, seed: int = 0
+                                 ) -> Dict[str, torch.Tensor]:
+    """C4-style prefix-LM batch of the standalone T5 path (calibration.py:
+    285-308; reference c4_dataset.py:24-64): {input_ids, attn_mask, labels
+    (-100 at pads)} on the CPU."""
+    rng = np.random.default_rng(seed)
+    prefixes, suffixes = [], []
+    for t in texts:
+        if len(prefixes) >= spec.num_samples:
+            break
+        pre, suf = split_prefix_suffix(t, rng)
+        prefixes.append(pre)
+        suffixes.append(suf if suf.strip() else pre)
+    in_ids, in_mask = tokenizer(prefixes, max_length=spec.text_input_len)
+    out_ids, out_mask = tokenizer(suffixes, max_length=spec.text_output_len)
+    labels = np.where(out_mask > 0, out_ids, -100)
+    return {
+        "input_ids": torch.from_numpy(in_ids),
+        "attn_mask": torch.from_numpy(in_mask),
+        "labels": torch.from_numpy(labels.astype(np.int64)),
+    }
+
+
 def build_lm_calibration_batch(token_stream: np.ndarray, num_samples: int,
                                seqlen: int, seed: int = 0) -> Dict[str, torch.Tensor]:
     """{input_ids: (num_samples, seqlen) int64} of random windows of one

@@ -5,7 +5,9 @@ reference LAVIS/lavis/datasets/builders/__init__.py:10-49).
 A builder takes ``{"vis_root": ..., "ann_paths": [...]}``, loads LAVIS-style
 JSON annotations and yields plain dict samples; ``batch_iterator`` stacks
 them. Registered: ``coco_vqa``, ``ok_vqa``, ``aok_vqa`` (VQA), ``gqa`` and
-``coco_caption``, ``nocaps`` (captions). The data must be on local disk.
+``coco_caption``, ``nocaps`` (captions), and the image folders ``imagenet``
+and ``cifar100`` (``ImageFolderDataset``; the 11 CoOp dataset names register
+in ``data/coop.py``). The data must be on local disk.
 """
 
 from __future__ import annotations
@@ -99,6 +101,40 @@ class CaptionDataset(AnnotationDataset):
         }
 
 
+@registry.register("builder", "imagenet")
+@registry.register("builder", "cifar100")
+class ImageFolderDataset:
+    """Class-subdirectory layout, labels the sorted directory index
+    (datasets.py:133-163). PIL is imported where an image is opened."""
+
+    def __init__(self, cfg: Dict[str, Any], vis_processor=None, **_):
+        root = cfg["vis_root"]
+        self.vis_processor = vis_processor
+        self.samples: List = []
+        self.classnames: List[str] = []
+        for ci, cls in enumerate(sorted(os.listdir(root))):
+            cdir = os.path.join(root, cls)
+            if not os.path.isdir(cdir):
+                continue
+            self.classnames.append(cls)
+            for fn in sorted(os.listdir(cdir)):
+                self.samples.append((os.path.join(cdir, fn), ci))
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        from PIL import Image
+
+        path, label = self.samples[i]
+        img = Image.open(path).convert("RGB")
+        if self.vis_processor is not None:
+            img = self.vis_processor(img)
+        else:
+            img = np.asarray(img, np.float32) / 255.0
+        return {"image": img, "label": label}
+
+
 def batch_iterator(dataset, batch_size: int,
                    collate: Optional[Callable[[List[Dict]], Dict]] = None,
                    limit: Optional[int] = None, drop_last: bool = False
@@ -129,3 +165,8 @@ def _collate(samples: List[Dict]) -> Dict:
         else:
             out[k] = vals
     return out
+
+
+# the CoOp builders (caltech101, dtd, eurosat, ...) register on import; they
+# subclass ImageFolderDataset, so the import stays at the bottom
+from ecoflap_tpu_torch.data import coop as _coop  # noqa: E402,F401

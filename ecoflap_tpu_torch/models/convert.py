@@ -1,11 +1,13 @@
-"""Load the JAX package's BLIP-2 or LLaMA parameters into the port's model.
+"""Load the JAX package's parameters into the port's model: BLIP-2, LLaMA,
+standalone T5 and CLIP / EVA-CLIP.
 
 ``flat`` is the JAX pytree as numpy arrays under dotted names (what
 ``ecoflap_tpu.core.pytree.flatten_named`` gives). Stacked ``(L, ...)`` leaves
 split into the per-block modules, ``(in, out)`` kernels transpose to
 ``(out, in)``, ``scale`` becomes a norm's ``weight``, and the T5 relative
 bias tables move onto block 0 as in HF. LLaMA takes the HF names that
-``ecoflap_tpu/utils/checkpoint.py:export_llama`` writes.
+``ecoflap_tpu/utils/checkpoint.py:export_llama`` writes, T5 those of
+``export_t5`` and CLIP OpenAI's (``convert_clip``, checkpoint.py:316-379).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ecoflap_tpu_torch.models import clip as clip_mod
 from ecoflap_tpu_torch.models import llama as llama_mod
 from ecoflap_tpu_torch.models import t5 as t5_mod
 
@@ -42,6 +45,12 @@ def jax_to_state_dict(flat: Flat, cfg) -> Dict[str, np.ndarray]:
     the model family of ``cfg``."""
     if isinstance(cfg, llama_mod.LlamaConfig):
         return _llama_state_dict(flat, cfg)
+    if isinstance(cfg, t5_mod.T5Config):
+        sd: Dict[str, np.ndarray] = {}
+        _t5_into(sd, flat, cfg, "")
+        return sd
+    if isinstance(cfg, clip_mod.CLIPConfig):
+        return _clip_state_dict(flat, cfg)
     return _blip2_state_dict(flat, cfg)
 
 
@@ -61,9 +70,9 @@ def _llama_state_dict(flat: Flat, cfg) -> Dict[str, np.ndarray]:
     return sd
 
 
-def _blip2_state_dict(flat: Flat, cfg) -> Dict[str, np.ndarray]:
-    sd: Dict[str, np.ndarray] = {}
-    v, pv = cfg.vit, "visual_encoder"
+def _eva_into(sd, flat: Flat, v, pv: str) -> None:
+    """An EVA ViT (``v`` its config) from JAX prefix ``pv`` to port prefix
+    ``pv``."""
     pe = flat[f"{pv}.patch_embed.kernel"]  # (C*p*p, d), rows ordered (C, ph, pw)
     sd[f"{pv}.patch_embed.proj.weight"] = pe.T.reshape(
         v.embed_dim, v.in_chans, v.patch_size, v.patch_size)
@@ -81,7 +90,39 @@ def _blip2_state_dict(flat: Flat, cfg) -> Dict[str, np.ndarray]:
         _norm(sd, f"{tb}.norm2", flat, f"{jb}.norm2", i)
         _dense(sd, f"{tb}.mlp.fc1", flat, f"{jb}.mlp.fc1", i)
         _dense(sd, f"{tb}.mlp.fc2", flat, f"{jb}.mlp.fc2", i)
+    if v.final_norm:
+        _norm(sd, f"{pv}.norm", flat, f"{pv}.norm")
+    if v.head_dim:
+        _dense(sd, f"{pv}.head", flat, f"{pv}.head")
 
+
+def _t5_into(sd, flat: Flat, t, prefix: str) -> None:
+    """A T5 (``t`` its config) from JAX prefix ``prefix`` ("" standalone,
+    "t5_model." in BLIP-2) to the same port prefix."""
+    sd[f"{prefix}shared.weight"] = flat[f"{prefix}shared"]
+    sd[f"{prefix}lm_head.weight"] = flat[f"{prefix}lm_head.kernel"].T
+    for which, n, linears in (("encoder", t.num_layers, t5_mod.ENCODER_LINEARS),
+                              ("decoder", t.num_decoder_layers, t5_mod.DECODER_LINEARS)):
+        js = ts = f"{prefix}{which}"
+        sd[f"{ts}.block.0.layer.0.SelfAttention.relative_attention_bias.weight"] = (
+            flat[f"{js}.rel_bias"])
+        sd[f"{ts}.final_layer_norm.weight"] = flat[f"{js}.final_ln.scale"]
+        local_to_path = {
+            "SelfAttention": "attn" if which == "encoder" else "self_attn",
+            "EncDecAttention": "cross_attn", "DenseReluDense": "mlp"}
+        for i in range(n):
+            for j in range(len({ln.split(".")[1] for ln in linears})):
+                sd[f"{ts}.block.{i}.layer.{j}.layer_norm.weight"] = (
+                    flat[f"{js}.blocks.ln{j}.scale"][i])
+            for ln in linears:
+                _, _, mod, proj = ln.split(".")
+                _dense(sd, f"{ts}.block.{i}.{ln}", flat,
+                       f"{js}.blocks.{local_to_path[mod]}.{proj}", i, bias=False)
+
+
+def _blip2_state_dict(flat: Flat, cfg) -> Dict[str, np.ndarray]:
+    sd: Dict[str, np.ndarray] = {}
+    _eva_into(sd, flat, cfg.vit, "visual_encoder")
     _norm(sd, "ln_vision", flat, "ln_vision")
     sd["query_tokens"] = flat["query_tokens"]
     qb = "Qformer.bert"
@@ -99,27 +140,46 @@ def _blip2_state_dict(flat: Flat, cfg) -> Dict[str, np.ndarray]:
         _dense(sd, f"{tl}.output_query.dense", flat, f"{jl}.ffn.output.dense")
         _norm(sd, f"{tl}.output_query.LayerNorm", flat, f"{jl}.ffn.output.ln")
     _dense(sd, "t5_proj", flat, "t5_proj")
+    _t5_into(sd, flat, cfg.t5, "t5_model.")
+    return sd
 
-    t = cfg.t5
-    sd["t5_model.shared.weight"] = flat["t5_model.shared"]
-    sd["t5_model.lm_head.weight"] = flat["t5_model.lm_head.kernel"].T
-    for which, n, linears in (("encoder", t.num_layers, t5_mod.ENCODER_LINEARS),
-                              ("decoder", t.num_decoder_layers, t5_mod.DECODER_LINEARS)):
-        js, ts = f"t5_model.{which}", f"t5_model.{which}"
-        sd[f"{ts}.block.0.layer.0.SelfAttention.relative_attention_bias.weight"] = (
-            flat[f"{js}.rel_bias"])
-        sd[f"{ts}.final_layer_norm.weight"] = flat[f"{js}.final_ln.scale"]
-        local_to_path = {
-            "SelfAttention": "attn" if which == "encoder" else "self_attn",
-            "EncDecAttention": "cross_attn", "DenseReluDense": "mlp"}
-        for i in range(n):
-            for j in range(len({ln.split(".")[1] for ln in linears})):
-                sd[f"{ts}.block.{i}.layer.{j}.layer_norm.weight"] = (
-                    flat[f"{js}.blocks.ln{j}.scale"][i])
-            for ln in linears:
-                _, _, mod, proj = ln.split(".")
-                _dense(sd, f"{ts}.block.{i}.{ln}", flat,
-                       f"{js}.blocks.{local_to_path[mod]}.{proj}", i, bias=False)
+
+def _resblocks_into(sd, flat: Flat, tower: str, jprefix: str, n: int) -> None:
+    """A resblock stack, JAX ``{jprefix}.blocks`` to OpenAI's
+    ``{tower}.resblocks`` (``attn.in_proj_weight``, checkpoint.py:316-339)."""
+    jb = f"{jprefix}.blocks"
+    for i in range(n):
+        tb = f"{tower}.resblocks.{i}"
+        _norm(sd, f"{tb}.ln_1", flat, f"{jb}.ln_1", i)
+        sd[f"{tb}.attn.in_proj_weight"] = flat[f"{jb}.attn.in_proj.kernel"][i].T
+        sd[f"{tb}.attn.in_proj_bias"] = flat[f"{jb}.attn.in_proj.bias"][i]
+        _dense(sd, f"{tb}.attn.out_proj", flat, f"{jb}.attn.out_proj", i)
+        _norm(sd, f"{tb}.ln_2", flat, f"{jb}.ln_2", i)
+        _dense(sd, f"{tb}.mlp.c_fc", flat, f"{jb}.mlp.c_fc", i)
+        _dense(sd, f"{tb}.mlp.c_proj", flat, f"{jb}.mlp.c_proj", i)
+
+
+def _clip_state_dict(flat: Flat, cfg) -> Dict[str, np.ndarray]:
+    sd: Dict[str, np.ndarray] = {
+        "token_embedding.weight": flat["text.token_embedding"],
+        "positional_embedding": flat["text.positional_embedding"],
+        "text_projection": flat["text.text_projection"],
+        "logit_scale": flat["logit_scale"],
+    }
+    _norm(sd, "ln_final", flat, "text.ln_final")
+    _resblocks_into(sd, flat, "transformer", "text", cfg.text.layers)
+    if cfg.eva_visual is not None:
+        _eva_into(sd, flat, cfg.eva_visual, "visual")
+        return sd
+    v = cfg.visual
+    sd["visual.conv1.weight"] = flat["visual.conv1.kernel"].T.reshape(
+        v.width, 3, v.patch_size, v.patch_size)
+    sd["visual.class_embedding"] = flat["visual.class_embedding"]
+    sd["visual.positional_embedding"] = flat["visual.positional_embedding"]
+    sd["visual.proj"] = flat["visual.proj"]
+    _norm(sd, "visual.ln_pre", flat, "visual.ln_pre")
+    _norm(sd, "visual.ln_post", flat, "visual.ln_post")
+    _resblocks_into(sd, flat, "visual.transformer", "visual", v.layers)
     return sd
 
 

@@ -1,8 +1,11 @@
-"""EVA ViT-g, BLIP-2's frozen vision tower (port of
-``ecoflap_tpu/models/eva_vit.py``; reference LAVIS/lavis/models/eva_vit.py).
+"""EVA ViT-g, BLIP-2's frozen vision tower and EVA-CLIP's visual tower (port
+of ``ecoflap_tpu/models/eva_vit.py``; reference LAVIS/lavis/models/eva_vit.py).
 
-Depth 39, width 1408, 16 heads, patch 14, fused qkv with separate q/v biases
-(no k bias), absolute position embedding, no final norm. Patch embedding is
+BLIP-2's tower: depth 39, width 1408, 16 heads, patch 14, fused qkv with
+separate q/v biases (no k bias), absolute position embedding, no final norm;
+it returns every token. EVA-CLIP-g's (``eva_clip_g_visual``): depth 40, then
+the cls token through a final LayerNorm (``norm``) and a linear ``head`` to
+the 1024-d joint space (eva_vit.py:56-57, 147-152, 248-262). Patch embedding is
 one matmul over extracted patches; the weight keeps the reference's Conv2d
 shape and name (``patch_embed.proj.weight``). Images are NHWC, as in the JAX
 package.
@@ -39,6 +42,8 @@ class EvaViTConfig:
     num_heads: int = 16
     mlp_hidden: int = 6144
     in_chans: int = 3
+    final_norm: bool = False  # EVA-CLIP: LayerNorm before the head
+    head_dim: int = 0  # EVA-CLIP: linear head to the joint space (0: none)
     ln_eps: float = 1e-6
 
     @property
@@ -54,10 +59,18 @@ def eva_vit_g(img_size: int = 224) -> EvaViTConfig:
     return EvaViTConfig(img_size=img_size)
 
 
-def vit_base_config(img_size: int = 224) -> EvaViTConfig:
+def eva_clip_g_visual(img_size: int = 224, embed_dim: int = 1024) -> EvaViTConfig:
+    """EVA-CLIP-g's visual tower (EVA-CLIP-g.json, eva_model.py:300-304)."""
+    return EvaViTConfig(img_size=img_size, depth=40, final_norm=True,
+                        head_dim=embed_dim)
+
+
+def vit_base_config(img_size: int = 224, **kw) -> EvaViTConfig:
     """ViT-B/16 dims in the EVA block ('--model_scale small')."""
-    return EvaViTConfig(img_size=img_size, patch_size=16, embed_dim=768,
-                        depth=12, num_heads=12, mlp_hidden=3072)
+    defaults = dict(img_size=img_size, patch_size=16, embed_dim=768, depth=12,
+                    num_heads=12, mlp_hidden=3072)
+    defaults.update(kw)
+    return EvaViTConfig(**defaults)
 
 
 def tiny_config(**kw) -> EvaViTConfig:
@@ -129,6 +142,8 @@ class EvaViT(nn.Module):
         self.cls_token = nn.Parameter(torch.empty(1, 1, d))
         self.pos_embed = nn.Parameter(torch.empty(1, cfg.seq_len, d))
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
+        self.norm = nn.LayerNorm(d, eps=cfg.ln_eps) if cfg.final_norm else None
+        self.head = nn.Linear(d, cfg.head_dim) if cfg.head_dim else None
 
     def embed(self, images: torch.Tensor) -> torch.Tensor:
         """(B, H, W, C) images -> (B, N+1, D) tokens: patch embed + cls +
@@ -143,6 +158,19 @@ class EvaViT(nn.Module):
         x = self.embed(images)
         for blk in self.blocks:
             x, _ = blk(x)
+        return x
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        """BLIP-2's tower: every token. EVA-CLIP's: the cls token through
+        ``norm`` and ``head`` (eva_vit.py:248-262)."""
+        x = self.forward_features(images)
+        if self.norm is None and self.head is None:
+            return x
+        x = x[:, 0]
+        if self.norm is not None:
+            x = layer_norm(x, self.norm.weight, self.norm.bias, self.cfg.ln_eps)
+        if self.head is not None:
+            x = dense(self.head, x)
         return x
 
     @torch.no_grad()
@@ -164,6 +192,12 @@ class EvaViT(nn.Module):
             for lin in (blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2):
                 normal_(lin.weight, 0.02, gen)
                 lin.bias.zero_()
+        if self.norm is not None:
+            self.norm.weight.fill_(1.0)
+            self.norm.bias.zero_()
+        if self.head is not None:
+            normal_(self.head.weight, 0.02, gen)
+            self.head.bias.zero_()
 
 
 def normal_(t: torch.Tensor, std: float, gen: torch.Generator) -> None:

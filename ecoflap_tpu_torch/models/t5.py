@@ -1,5 +1,7 @@
 """FlanT5 encoder-decoder (port of ``ecoflap_tpu/models/t5.py``; reference
-the vendored HF T5, LAVIS modeling_t5.py).
+the vendored HF T5, LAVIS modeling_t5.py): BLIP-2's language model and the
+standalone ``t5`` model (``make_adapter``: stacks ``encoder.block`` and
+``decoder.block``, the C4 prefix-LM loss over ``input_ids``).
 
 RMSNorm pre-norm blocks, unscaled attention without biases, one relative
 position bias table per stack (on block 0, as in HF), gated-gelu FFN
@@ -21,8 +23,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ecoflap_tpu_torch.core.device import resolve_device
 from ecoflap_tpu_torch.models.eva_vit import normal_
 from ecoflap_tpu_torch.models.layers import collect_stats, mask_bias, rms_norm
+from ecoflap_tpu_torch.pruning.adapter import ModelAdapter, StackSpec
 
 ENCODER_LINEARS = (
     "layer.0.SelfAttention.q",
@@ -327,6 +331,20 @@ class T5Model(nn.Module):
         enc_out = self.encode_embeds(enc_embeds, attn_mask)
         return self.loss_from_enc(enc_out, attn_mask, labels)
 
+    def text_loss(self, input_ids: torch.Tensor, attn_mask: torch.Tensor,
+                  labels: torch.Tensor) -> torch.Tensor:
+        """(B,) per-sample token-mean CE over input ids: the standalone
+        model's calibration loss (t5.py:422-442)."""
+        return self.loss_from_enc(self.encode(input_ids, attn_mask), attn_mask, labels)
+
+    def first_token_logits(self, input_ids: torch.Tensor,
+                           attn_mask: torch.Tensor) -> torch.Tensor:
+        """(B, V) float32 logits of the decoder's first step from
+        ``decoder_start_token_id``: what MMLU scores (evaluate.py:549-580)."""
+        dec_in = torch.full((input_ids.shape[0], 1), self.cfg.decoder_start_token_id,
+                            dtype=input_ids.dtype, device=input_ids.device)
+        return self.decode(self.encode(input_ids, attn_mask), attn_mask, dec_in)[:, 0]
+
     @torch.no_grad()
     def init_(self, gen: torch.Generator) -> None:
         """HF T5 init factors, as the JAX ``init_params`` draws them."""
@@ -372,3 +390,63 @@ def ce_per_sample(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     picked = torch.gather(logits, -1, safe[..., None])[..., 0]
     ce = torch.where(valid, lse - picked, torch.zeros_like(lse))
     return ce.sum(dim=-1) / valid.sum(dim=-1).clamp_min(1).to(ce.dtype)
+
+
+# -- the standalone model (``t5``, lavis/models/t5_models/t5.py) ----------------
+
+def config_for_scale(scale: str) -> T5Config:
+    """The CLIs' ``--model_scale``: ``full`` FlanT5-XL, ``small``
+    flan-t5-base, ``tiny`` the test shapes."""
+    if scale == "full":
+        return flan_t5_xl()
+    if scale == "small":
+        return flan_t5_base()
+    return tiny_config()
+
+
+def build_model(cfg: T5Config, *, device=None, dtype=torch.float32,
+                seed: Optional[int] = 0) -> T5Model:
+    """Allocate the model on ``device`` (the card unless ``"cpu"``) in
+    ``dtype``, with frozen weights; ``seed`` draws a random init from its own
+    ``torch.Generator``, ``seed=None`` leaves the storage for a loader."""
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        model = T5Model(cfg).to(dtype)
+    model = model.to_empty(device=dev)
+    model.requires_grad_(False)
+    model.eval()
+    if seed is not None:
+        model.init_(torch.Generator(device=dev).manual_seed(int(seed)))
+    return model
+
+
+def make_adapter(model: T5Model) -> ModelAdapter:
+    """The standalone-T5 adapter (t5.py:552-570): the encoder and decoder
+    stacks under the HF names, the prefix-LM loss over C4-style
+    ``{input_ids, attn_mask, labels}`` batches, both stacks in the submodel
+    ``t5``. No suffix plans: MeZO scores every target by the serial in-place
+    cycle on the whole loss."""
+    cfg = model.cfg
+
+    def enc_prepare(m, batch):
+        x = m.shared(batch["input_ids"])
+        return x, m.encoder_bias(batch["attn_mask"], x.shape[1])
+
+    def dec_prepare(m, batch):
+        enc_out = m.encode(batch["input_ids"], batch["attn_mask"])
+        return m.decoder_inputs(batch["labels"], enc_out, batch["attn_mask"])
+
+    def block_forward(block, x, cache, collect=None):
+        return block(x, cache, collect=collect)
+
+    stacks = [
+        StackSpec("encoder.block", cfg.num_layers, ENCODER_LINEARS, True,
+                  enc_prepare, block_forward, lambda m: m.encoder.block),
+        StackSpec("decoder.block", cfg.num_decoder_layers, DECODER_LINEARS, True,
+                  dec_prepare, block_forward, lambda m: m.decoder.block),
+    ]
+    return ModelAdapter(
+        name="t5", model=model,
+        loss_fn=lambda m, batch: m.text_loss(batch["input_ids"], batch["attn_mask"],
+                                             batch["labels"]),
+        stacks=stacks, model_prefixes={s.name: "t5" for s in stacks})

@@ -4,9 +4,11 @@ method, Wanda or SparseGPT; ``GlobalPruner``: the global-mask baselines
 ``BLIPT5LayerWandaPruner``, wanda_pruner.py:660-876, the SparseGPT pruners,
 and global_pruner.py:56-244).
 
-Registered under the reference names ``blipt5_wanda_pruner`` and
-``llama_wanda_pruner`` (``TwoStagePruner``), ``blipt5_sparsegpt_pruner`` and
-``llama_sparsegpt_pruner`` (``SparseGPTPruner``),
+Registered under the reference names ``blipt5_wanda_pruner``,
+``llama_wanda_pruner``, ``t5_wanda_pruner``, ``vit_wanda_pruner`` and
+``clip_wanda_pruner`` (``TwoStagePruner``), ``blipt5_sparsegpt_pruner``,
+``llama_sparsegpt_pruner``, ``t5_sparsegpt_pruner``, ``vit_sparsegpt_pruner``
+and ``clip_sparsegpt_pruner`` (``SparseGPTPruner``),
 ``blipt5_global_mag_pruner`` and ``llama_magnitude_pruner`` (magnitude),
 ``blipt5_global_gradmagabs_pruner`` (|W| |G|) and
 ``blipt5_global_mezo_pruner`` (MeZO), as the JAX package registers them.
@@ -386,10 +388,9 @@ class GlobalMeZoPruner(GlobalPruner):
     score = "mezo"
 
 
-registry.register("pruner", "blipt5_wanda_pruner", TwoStagePruner)
-registry.register("pruner", "llama_wanda_pruner", TwoStagePruner)
-registry.register("pruner", "blipt5_sparsegpt_pruner", SparseGPTPruner)
-registry.register("pruner", "llama_sparsegpt_pruner", SparseGPTPruner)
+for _family in ("blipt5", "llama", "t5", "vit", "clip"):
+    registry.register("pruner", f"{_family}_wanda_pruner", TwoStagePruner)
+    registry.register("pruner", f"{_family}_sparsegpt_pruner", SparseGPTPruner)
 registry.register("pruner", "blipt5_global_mag_pruner", GlobalMagPruner)
 registry.register("pruner", "blipt5_global_gradmagabs_pruner", GlobalGradMagAbsPruner)
 registry.register("pruner", "blipt5_global_mezo_pruner", GlobalMeZoPruner)

@@ -109,9 +109,10 @@ def robust_cholesky(h: torch.Tensor, damp: torch.Tensor,
 def prepare_hinv(h: torch.Tensor, percdamp: float = 0.01
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """H (.., n, n) -> (upper Cholesky factor U of H^-1, with H^-1 = U^T U;
-    dead-column mask (.., n)). Batched over leading dimensions; the inf
-    clamp and the damping run per lane."""
-    h = h.to(torch.float32).clone()
+    dead-column mask (.., n)), in float32 (float64 for a float64 ``h``).
+    Batched over leading dimensions; the inf clamp and the damping run per
+    lane."""
+    h = h.to(torch.promote_types(h.dtype, torch.float32)).clone()
     d = torch.diagonal(h, dim1=-2, dim2=-1)
     dead = d == 0
     d.masked_fill_(dead, 1.0)
@@ -196,10 +197,11 @@ def sparsegpt_prune_weight_group(
     Hessians ``hs`` (K, in, in) in one batched sweep; returns the pruned
     weights in ``ws``'s dtype. Per lane the result is
     ``sparsegpt_prune_weight``'s up to the batched products' reduction
-    order (sparsegpt.py:203-306)."""
+    order (sparsegpt.py:203-306). The sweep runs in float32, or in float64
+    when ``ws`` and ``hs`` are float64."""
     t0 = time.time() if times is not None else 0.0
     orig_dtype = ws.dtype
-    w = ws.to(torch.float32).clone()
+    w = ws.to(torch.promote_types(ws.dtype, torch.float32)).clone()
     k, rows, cols = w.shape
     hinv, dead = prepare_hinv(hs, percdamp)
     w.masked_fill_(dead[:, None, :], 0.0)

@@ -1,9 +1,10 @@
 """Evaluation tasks (reference lavis/tasks/__init__.py ``setup_task``): VQA
-and GQA, captioning, and the language-model tasks. Classification,
-retrieval and MMLU wait for their model families."""
+and GQA, captioning, the language-model tasks, MMLU and (zero-shot)
+classification. Retrieval waits for its model family."""
 
 from ecoflap_tpu_torch.core.registry import registry
-from ecoflap_tpu_torch.tasks import captioning, lm, vqa  # noqa: F401 (they register)
+from ecoflap_tpu_torch.tasks import (  # noqa: F401 (they register)
+    captioning, classification, lm, mmlu, vqa)
 
 
 def setup_task(name: str, *args, **kwargs):

@@ -3,9 +3,10 @@ copy of the ``.pth`` I/O of ``ecoflap_tpu/utils/checkpoint.py``).
 
 The port's models store their weights in the torch ``(out, in)`` layout
 under the reference names, so a model's ``state_dict`` is the reference
-checkpoint: the keys that ``export_blip2`` (checkpoint.py:456-473) and
-``export_llama`` (:291) write, in float32 as they write them.
-``state_dict`` leaves out non-persistent buffers.
+checkpoint: the keys that ``export_blip2`` (checkpoint.py:456-473),
+``export_llama`` (:291) and ``export_t5`` (:227) write and ``convert_clip``
+(:342) reads, in float32 as they write them. ``state_dict`` leaves out
+non-persistent buffers.
 """
 
 from __future__ import annotations
@@ -54,11 +55,13 @@ def load_into(model: nn.Module, state: StateDict) -> int:
     does a shape that differs; keys the model lacks are ignored and counted
     (a reference checkpoint carries more than the pruned towers). A state
     with EVA-CLIP's ``visual.`` keys and none of BLIP-2's ``visual_encoder.``
-    is remapped first. Returns the number of keys ignored."""
-    if (any(k.startswith("visual.") for k in state)
-            and not any(k.startswith("visual_encoder.") for k in state)):
-        state = remap_eva_clip_to_blip2(state)
+    is remapped first when the model is BLIP-2. Returns the number of keys
+    ignored."""
     own = model.state_dict()
+    if (any(k.startswith("visual.") for k in state)
+            and not any(k.startswith("visual_encoder.") for k in state)
+            and any(k.startswith("visual_encoder.") for k in own)):
+        state = remap_eva_clip_to_blip2(state)
     missing = sorted(set(own) - set(state))
     if missing:
         raise KeyError(f"checkpoint lacks {len(missing)} of the model's "
@@ -70,3 +73,13 @@ def load_into(model: nn.Module, state: StateDict) -> int:
                              f"the model's {tuple(t.shape)}")
         t.copy_(src)
     return len(set(state) - set(own))
+
+
+def export_eva_clip_visual(model: nn.Module) -> StateDict:
+    """EVA-CLIP's ``--save_pruned_model`` export (cli/prune.py:360-367;
+    reference evaluate_eva_clip.py:414-428): the visual tower under
+    ``visual.`` without its last block, the 39 blocks BLIP-2's EVA ViT-g
+    has, float32."""
+    last = f"blocks.{model.cfg.eva_visual.depth - 1}."
+    return {k: v for k, v in export_state_dict(model).items()
+            if k.startswith("visual.") and last not in k}

@@ -176,7 +176,7 @@ def test_without_a_card_the_default_device_raises(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--model", "t5", "--task", "mmlu", "--synthetic"],
+    ["--model", "t5", "--task", "mmlu", "--ann", "x.json"],
     ["--model", "blip2_opt", "--task", "captioning", "--synthetic"],
     ["--model", "llama", "--task", "wikitext_ppl", "--ann", "x.json"],
 ], ids=["t5_mmlu", "blip2_opt", "llama_real"])

@@ -52,12 +52,33 @@ def test_sources_do_not_import_jax_or_the_jax_package(path):
     assert not bad, f"{path}: {bad}"
 
 
+def _module_level_imports(path: Path):
+    """Imports at a module's top level (not inside a function or class)."""
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p for p in PKG.rglob("*.py")] + [ROOT / "chip_smoke.py"]),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_import_no_yaml_or_pil_at_module_level(path):
+    """The card's machine has neither: PIL is imported where an image is
+    opened, and the port reads YAML itself (core/config.py)."""
+    bad = [m for m in _module_level_imports(path)
+           if m.split(".")[0] in ("yaml", "PIL")]
+    assert not bad, f"{path}: {bad}"
+
+
 def test_every_package_module_is_scanned():
     mods = {m.name for m in pkgutil.walk_packages([str(PKG)], "ecoflap_tpu_torch.")}
-    assert "ecoflap_tpu_torch.ops.perturb" in mods
-    assert "ecoflap_tpu_torch.cli.prune" in mods
-    assert "ecoflap_tpu_torch.ops.attention" in mods
-    assert "ecoflap_tpu_torch.models.llama" in mods
+    for name in ("ops.perturb", "cli.prune", "cli.evaluate", "ops.attention",
+                 "models.llama", "models.clip", "models.t5", "core.config",
+                 "core.project", "data.coop", "data.prompts", "tasks.mmlu",
+                 "tasks.classification"):
+        assert f"ecoflap_tpu_torch.{name}" in mods, name
 
 
 def test_cli_without_cpu_request_raises_when_there_is_no_card(tmp_path):

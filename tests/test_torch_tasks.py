@@ -15,7 +15,9 @@ from ecoflap_tpu.tasks import lm as jlm
 from ecoflap_tpu.tasks import vqa as jvqa
 from ecoflap_tpu_torch.runners.runner import Runner
 from ecoflap_tpu_torch.tasks import captioning as tcap
+from ecoflap_tpu_torch.tasks import classification as tcls
 from ecoflap_tpu_torch.tasks import lm as tlm
+from ecoflap_tpu_torch.tasks import mmlu as tmmlu
 from ecoflap_tpu_torch.tasks import setup_task
 from ecoflap_tpu_torch.tasks import vqa as tvqa
 
@@ -119,10 +121,12 @@ def test_setup_task_names_the_jax_registry_names():
     for name, cls in (("vqa", tvqa.VQATask), ("aok_vqa", tvqa.VQATask),
                       ("gqa", tvqa.GQATask), ("captioning", tcap.CaptionTask),
                       ("wikitext_ppl", tlm.PerplexityTask),
-                      ("prefix_lm_loss", tlm.PrefixLMLossTask)):
+                      ("prefix_lm_loss", tlm.PrefixLMLossTask),
+                      ("mmlu", tmmlu.MMLUTask),
+                      ("multimodal_classification", tcls.ClassificationTask)):
         assert type(setup_task(name)) is cls
-    with pytest.raises(KeyError, match="mmlu"):
-        setup_task("mmlu")
+    with pytest.raises(KeyError, match="mmlu"):  # the error lists the known names
+        setup_task("retrieval")
 
 
 def test_runner_evaluate_logs_each_split(tmp_path):
