@@ -27,11 +27,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
      depth with the flags of scripts/llama/ecoflap_zero.sh, except 64
      calibration windows in microbatches of 4 and one coarse microbatch of 4
      windows (the reference prunes on 128 and scores 32; cut for time from
-     128 windows in microbatches of 8), scoring by
+     128 windows in microbatches of 8), calibrated by ``--calib`` on a
+     C4-style jsonl written here (the CLI's file branch: each document
+     tokenized with EOS, one stream, windows of it), scoring by
      the serial in-place cycle (LLaMA's default: the in-place perturbation
-     kernel), counting kernel launches;
+     kernel), counting kernel launches; then, on the CPU, the CLI's windows
+     checked against the file's stream and a file too short for them
+     ending the run with the JAX CLI's message;
   6. the LLaMA first-order path: LLaMA-7B at full width and depth with the
-     same flags and ``--score_method GradOnly_sum`` (the reference
+     same flags, ``--calib synthetic`` and ``--score_method GradOnly_sum`` (the reference
      LLaMA/main.py without --use_mezo), all 32 coarse windows (8
      microbatches of 4), counting kernel launches: every block's backward runs
      the flash backward kernels;
@@ -44,7 +48,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      share against its ratio, the fine stage's wall split per stack; then
      ViT-g block 0 at the same init and calibration, pruned by SparseGPT on
      the card and on the CPU from one float32 Hessian: the Hessians'
-     conditioning and the two sides' reconstruction errors;
+     conditioning and the two sides' reconstruction errors, and on the card
+     the CUDA-graphed column sweep against the eager one, bit for bit;
   9. the port on the card against the port on the CPU: tiny BLIP-2 in f32,
      and a small LLaMA in bf16 on the card (flash kernels) against f32 on
      the CPU (plain attention): logits, losses and first-order sums, the
@@ -103,7 +108,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
      ``Runner.evaluate``;
  17. the CLIP ViT-B/16 path: scripts/coop/ecoflap_wanda.sh's second loop,
      uncut (96 targets, 4 coarse microbatches of 16), then zero-shot
-     classification with the ImageNet CoOp template.
+     classification with the ImageNet CoOp template;
+ 18. the BLIP-1 caption path, the UPop run: ``ecoflap_tpu_torch.cli.upop``
+     (scripts/upop/ecoflap_caption.py's flow) on BLIP-1 with ViT-B/16 at 384
+     px and the 12-layer BERT decoder (random bf16 weights, seed 42): 16
+     samples in 2 coarse microbatches (cut from the launcher's 32 in 4),
+     p = 0.5, the ViT's 48 targets by the full loss and the decoder's 120 by
+     its LossPlan, all by the serial in-place cycle (kernel 1, 1,008
+     launches),
+     then 2 masked AdamW steps (every pruned entry stays 0) and the pruned
+     ``.pth``, read back tensor by tensor; then the evaluate CLI's blip1
+     captioning from that ``.pth`` (2 batches of 8, beam 3, 20 tokens).
 Phase 9 also holds tiny BLIP-2's generated tokens (f32, greedy and beam 5
 at the VQA and captioning points) on the card against the CPU; tiny BLIP-2
 in bf16 with rows that finish: the decode step's float32 logits on the card
@@ -113,9 +128,13 @@ f32, tiny standalone T5's zeroth-order and SparseGPT masks (SparseGPT on
 random ids, then on the CLI's own batch: the flip share read, encoder block
 0 from one Hessian in f32 and f64), tiny CLIP's and
 EVA-CLIP's contrastive losses and zero-shot logits, and tiny T5's MMLU
-first-token logits, card against CPU. Phase 2 also holds the in-place
-kernel at CLIP ViT-B/16's eight weight shapes. Kernel launch counts are set
-to 0 just before each of phases 4 to 8 and 10 to 17 and read just after it. The line before the last holds the card's
+first-token logits, card against CPU; and tiny BLIP-1's four heads (f32,
+kernels 10x the init): the per-sample loss and the UPop launcher's
+sparsity dict and masks from one ``--ckpt`` (kernel 1 on the card), card
+against CPU. Phase 2 also holds the in-place kernel at CLIP ViT-B/16's
+eight weight shapes (BLIP-1's are among them). Kernel
+launch counts are set to 0 just before each of phases 4 to 8 and 10 to 18
+(phase 18: the prune, then the captioning eval) and read just after it. The line before the last holds the card's
 ``name, power.limit``; the last is ``{"ok": true, "device": {...}}``.
 """
 
@@ -159,8 +178,9 @@ LLAMA_SHAPES = [(4096, 4096)] * 4 + [(11008, 4096)] * 2 + [(4096, 11008)]
 CLIP_SHAPES = [(2304, 768), (768, 768), (3072, 768), (768, 3072),
                (1536, 512), (512, 512), (2048, 512), (512, 2048)]
 # the in-place kernel runs the serial cycles of phases 5 (LLaMA-7B), 14
-# (FlanT5-XL, BLIP-2's T5 shapes), 16 (EVA-CLIP-g, BLIP-2's ViT shapes) and
-# 17 (CLIP ViT-B/16), and BLIP-2's that --mezo_ensemble 0 selects
+# (FlanT5-XL, BLIP-2's T5 shapes), 16 (EVA-CLIP-g, BLIP-2's ViT shapes), 17
+# (CLIP ViT-B/16) and 18 (BLIP-1: CLIP ViT-B/16's visual shapes), and
+# BLIP-2's that --mezo_ensemble 0 selects
 IN_PLACE_SHAPES = XL_SHAPES + sorted(set(LLAMA_SHAPES)) + CLIP_SHAPES + [RAGGED]
 LLAMA_LINEARS = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
                  "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj", "mlp.down_proj")
@@ -374,6 +394,36 @@ CLIP_PEAK_GIB = 8.0
 NEW_FAMILY_REL_L2 = 1e-3
 NEW_FAMILY_DICT_RTOL = 1e-3
 NEW_FAMILY_MASK_SHARE = 1e-3
+# phase 18, the UPop caption run (scripts/upop/ecoflap_caption.py's flow
+# through cli/upop.py): BLIP-1 with ViT-B/16 at 384 px and the 12-layer BERT
+# decoder, bf16, p = 0.5 (cap 0.6), 2 masked AdamW steps, then captioning
+# from the pruned .pth at blip_caption's generate defaults (beam 3, 20
+# tokens), 2 batches of 8. Its samples are cut to 16 in 2 coarse
+# microbatches of 8 (the launcher's default: 32 in 4) to keep the run inside
+# half its limit
+BLIP1_SAMPLES = 16
+BLIP1_MICROBATCH = 8
+BLIP1_TARGETS = 12 * 4 + 12 * 10
+BLIP1_FT_STEPS = 2
+BLIP1_EVAL_BATCHES = 2
+BLIP1_CAPTION_POINT = dict(max_new_tokens=20, num_beams=3, length_penalty=1.0)
+# 0.45 GB of bf16 weights, AdamW's two moments 0.9 GB more, and the
+# fine-tune step's saved activations at 32 x 577 ViT tokens: the naive
+# attention keeps each block's (32, 12, 577, 577) probabilities, some 0.5-1
+# GB a block; a leak of a model copy or of the coarse stage's per-target
+# buffers crosses it
+BLIP1_PEAK_GIB = 24.0
+# (out, in) of its targets per block: ViT-B/16's qkv, proj, fc1, fc2 (CLIP
+# ViT-B/16's visual shapes); the BERT decoder's 8 of 768 x 768 (self and
+# cross query, key, value, output), intermediate and output
+BLIP1_SHAPES = (CLIP_SHAPES[:4] * 12
+                + ([(768, 768)] * 8 + [(3072, 768), (768, 3072)]) * 12)
+# phase 9's tiny BLIP-1 heads: at the init (std 0.02) a MeZO perturbation
+# moves their loss by a few float32 ulps, so the kernels are scaled 10x and
+# eps is 0.2, as tests/test_torch_blip1.py holds them against the JAX package
+BLIP1_TINY_KERNEL_SCALE = 10.0
+BLIP1_TINY_EPS = 0.2
+BLIP1_TINY_SAMPLES = 8
 
 
 def log(*a):
@@ -385,6 +435,43 @@ def nvidia_smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def card_health() -> str:
+    """The card's ECC error counts, clocks and temperature, as nvidia-smi
+    reads them (for a report; fields the card lacks read "[N/A]")."""
+    fields = ("ecc.errors.corrected.volatile.total,"
+              "ecc.errors.uncorrected.volatile.total,clocks.sm,clocks.mem,"
+              "temperature.gpu")
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+            capture_output=True, text=True, check=False, timeout=60)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"{fields} unread ({e})"
+    return f"{fields} = {out.stdout.strip() or out.stderr.strip()}"
+
+
+def philox_mismatch(P, torch, m, seed, dev, kw, rw):
+    """What differs between the kernel's Philox words ``kw`` and the plain
+    version's ``rw``: how many counters, the first one, and whether a second
+    launch of each side gives its own first words again (a fault that does
+    not repeat points at the card, one that does at the code)."""
+    bad = torch.zeros(m, dtype=torch.bool, device=dev)
+    for a, b in zip(kw, rw):
+        bad |= a != b
+    idx = bad.nonzero().flatten()
+    j = idx[0].item()
+    kw2 = P.philox_stream_cuda(m, seed, dev)
+    rw2 = P.philox_stream_ref(m, seed, dev)
+    k_same = all(torch.equal(a, b) for a, b in zip(kw, kw2))
+    r_same = all(torch.equal(a, b) for a, b in zip(rw, rw2))
+    k2_ref = all(torch.equal(a, b) for a, b in zip(kw2, rw))
+    return (f"{idx.numel()} of {m} counters differ, the first {j} (kernel "
+            f"{[w[j].item() for w in kw]}, plain {[w[j].item() for w in rw]}), "
+            f"the last {idx[-1].item()}; a second launch: kernel repeats itself "
+            f"{k_same}, plain repeats itself {r_same}, kernel equals plain "
+            f"{k2_ref}; {card_health()}")
 
 
 def ulp_distance(a, b):
@@ -405,7 +492,9 @@ def check_perturb(P, torch, shape, dtype):
     m = -(-n // P.ELEMENTS_PER_COUNTER)  # the counters the n elements use
     kw = P.philox_stream_cuda(m, seed, dev)
     rw = P.philox_stream_ref(m, seed, dev)
-    assert all(torch.equal(a, b) for a, b in zip(kw, rw)), f"{shape}: Philox words differ"
+    if not all(torch.equal(a, b) for a, b in zip(kw, rw)):
+        raise AssertionError(f"{shape}: Philox words differ: "
+                             + philox_mismatch(P, torch, m, seed, dev, kw, rw))
     del kw, rw
 
     zk = torch.zeros(shape, dtype=torch.float32, device=dev)
@@ -725,15 +814,16 @@ def time_perturb_host(P, torch, perturb_seed):
 def serial_cycle_paths():
     """{path: ((out, in) of each target, coarse microbatches)} of the paths
     that score by the serial in-place cycle: LLaMA-7B (phase 5), FlanT5-XL
-    (phase 14), EVA-CLIP-g's visual tower (phase 16) and CLIP ViT-B/16
-    (phase 17)."""
+    (phase 14), EVA-CLIP-g's visual tower (phase 16), CLIP ViT-B/16 (phase
+    17) and BLIP-1 (phase 18)."""
     t5_xl = xl_target_shapes()[4 * 39:]
     eva_g = [(4224, 1408), (1408, 1408), (6144, 1408), (1408, 6144)] * 40
     clip_b16 = CLIP_SHAPES[:4] * 12 + CLIP_SHAPES[4:] * 12
     return {"llama": (LLAMA_SHAPES * LLAMA_LAYERS, LLAMA_FIRST_STAGE // LLAMA_BATCH),
             "t5": (t5_xl, T5_FIRST_STAGE // BATCH_SIZE),
             "eva_clip": (eva_g, EVA_FIRST_STAGE // BATCH_SIZE),
-            "clip": (clip_b16, CLIP_SAMPLES // CLIP_BATCH)}
+            "clip": (clip_b16, CLIP_SAMPLES // CLIP_BATCH),
+            "blip1": (BLIP1_SHAPES, BLIP1_SAMPLES // BLIP1_MICROBATCH)}
 
 
 def perturb_launch_weights(paths=None):
@@ -1153,6 +1243,7 @@ def vit_block_sparsegpt(torch, ratio):
         torch, block.get_submodule(local).weight.to(torch.float32),
         (2.0 / NUM_SAMPLES) * stats[local].to(torch.float32), ratio, local)
         for local in eva_vit.LINEAR_NAMES}
+    assert all(r["graphed"] for r in out.values()), "ViT-g block 0: a sweep not graphed"
     del vit, stats
     torch.cuda.empty_cache()
     return out
@@ -1161,14 +1252,31 @@ def vit_block_sparsegpt(torch, ratio):
 def sparsegpt_card_vs_cpu(torch, w, h, ratio, name):
     """One weight ``w`` pruned by SparseGPT from one float32 Hessian ``h``
     (both on the card) on the card and on the CPU (vit_block_sparsegpt's
-    readings and gates)."""
-    from ecoflap_tpu_torch.pruning.sparsegpt import sparsegpt_prune_weight
+    readings and gates); where the card graphs the column sweep (``graphed``),
+    the graphed sweep against the eager one, alone and in a group of two
+    lanes, bit for bit."""
+    from ecoflap_tpu_torch.pruning import sparsegpt as sg
 
     ev = torch.linalg.eigvalsh(h.double())
     sym = (h + h.mT) / 2
     fails = tuple(int(torch.linalg.cholesky_ex(m).info) != 0 for m in (sym, sym.cpu()))
-    card = sparsegpt_prune_weight(w, h, ratio)
-    cpu = sparsegpt_prune_weight(w.cpu(), h.cpu(), ratio).cuda()
+
+    def both_sweeps():
+        return (sg.sparsegpt_prune_weight(w, h, ratio),
+                sg.sparsegpt_prune_weight_group(torch.stack([w, w]), torch.stack([h, h]),
+                                                [ratio, ratio]))
+
+    card, group = both_sweeps()
+    graphed = w.shape[1] // 128 >= sg.GRAPH_MIN_BLOCKS
+    if graphed:
+        graph_min, sg.GRAPH_MIN_BLOCKS = sg.GRAPH_MIN_BLOCKS, w.shape[1] + 1
+        try:
+            eager, eager_group = both_sweeps()
+        finally:
+            sg.GRAPH_MIN_BLOCKS = graph_min
+        assert torch.equal(card, eager) and torch.equal(group, eager_group), \
+            f"{name}: the graphed SparseGPT sweep is not the eager one bit for bit"
+    cpu = sg.sparsegpt_prune_weight(w.cpu(), h.cpu(), ratio).cuda()
     assert torch.isfinite(card).all() and torch.isfinite(cpu).all(), name
     hd, wd = h.double(), w.double()
 
@@ -1181,7 +1289,7 @@ def sparsegpt_card_vs_cpu(torch, w, h, ratio, name):
          "mask_share": ((card == 0) != (cpu == 0)).float().mean().item(),
          "rel_l2": ((card - cpu).norm() / cpu.norm()).item(),
          "recon_card": recon(card), "recon_cpu": recon(cpu),
-         "recon_mask_only": recon(w * (card != 0))}
+         "recon_mask_only": recon(w * (card != 0)), "graphed": graphed}
     assert abs(r["recon_card"] / r["recon_cpu"] - 1) <= SPARSEGPT_XL_RECON_RTOL, (name, r)
     assert max(r["recon_card"], r["recon_cpu"]) < r["recon_mask_only"], (name, r)
     return r
@@ -2149,6 +2257,250 @@ def clip_path(torch, cli, kernels, out_dir, read_flat_yaml):
     return counts, info
 
 
+def blip1_tiny_checks(torch, P, tmp):
+    """Phase 9's BLIP-1 checks: each of the four heads at tiny width, f32,
+    card against CPU, from one model (kernels ``BLIP1_TINY_KERNEL_SCALE``
+    times the init): the per-sample loss, then the UPop launcher
+    (``cli/upop.py``) on both devices from one ``--ckpt``, kernel 1 on the
+    card: sparsity dicts within ``NEW_FAMILY_DICT_RTOL``, mask flips within
+    ``NEW_FAMILY_MASK_SHARE``. Returns the readings."""
+    from ecoflap_tpu_torch.cli import upop
+    from ecoflap_tpu_torch.models import blip1
+    from ecoflap_tpu_torch.utils.checkpoint import export_state_dict, save_torch_checkpoint
+
+    out = {}
+    for head, kind in upop.HEADS.items():
+        cpu = blip1.build_model(blip1.tiny_config(), kind, device="cpu", seed=3)
+        with torch.no_grad():
+            for name, mod in cpu.named_modules():
+                # every linear but the LM head's decoder, tied to the embedding
+                if isinstance(mod, torch.nn.Linear) and not name.endswith("decoder"):
+                    mod.weight.mul_(BLIP1_TINY_KERNEL_SCALE)
+        card = copy.deepcopy(cpu).to("cuda")
+        batch = upop.build_batch(head, cpu.cfg, 4)
+        with torch.no_grad():
+            loss = {dev: m.per_sample_loss({k: torch.from_numpy(v).to(dev)
+                                            for k, v in batch.items()}).cpu()
+                    for dev, m in (("cuda", card), ("cpu", cpu))}
+        rel = ((loss["cuda"] - loss["cpu"]).norm() / loss["cpu"].norm()).item()
+        assert rel <= NEW_FAMILY_REL_L2, (head, rel)
+        ckpt = os.path.join(tmp, f"tiny_blip1_{head}.pth")
+        save_torch_checkpoint(export_state_dict(cpu), ckpt)
+        zeros, dicts, made = {}, {}, {}
+        t0 = time.time()
+        for dev in ("cuda", "cpu"):
+            before = P.perturb_inplace.launches
+            r = upop.main(["--head", head, "--device", dev, "--ckpt", ckpt, "--num_samples",
+                           str(BLIP1_TINY_SAMPLES), "--noise_eps", str(BLIP1_TINY_EPS)])
+            targets = r["adapter"].targets()
+            want = 3 * len(targets) * (BLIP1_TINY_SAMPLES // BLIP1_MICROBATCH)
+            made[dev] = P.perturb_inplace.launches - before
+            assert made[dev] == (want if dev == "cuda" else 0), (head, dev, made)
+            zeros[dev] = {t.name: (t.weight(r["model"]) == 0).cpu() for t in targets}
+            dicts[dev] = r["sparsity_dict"]
+        assert set(dicts["cuda"]) == set(dicts["cpu"]) == set(zeros["cpu"]), head
+        for k, v in dicts["cpu"].items():
+            assert abs(dicts["cuda"][k] - v) <= NEW_FAMILY_DICT_RTOL * abs(v), (head, k, v)
+        flips, n = mask_flips(zeros["cuda"], zeros["cpu"])
+        out[head] = {"loss_rel_l2": rel, "mask_flip_share": flips / n,
+                     "launches": made["cuda"], "sparsity": r["sparsity"],
+                     "wall": time.time() - t0}
+        assert flips / n <= NEW_FAMILY_MASK_SHARE, (head, out[head])
+    return out
+
+
+def blip1_path(torch, kernels, out_dir):
+    """Phase 18: the UPop caption run at ``blip_base`` width through
+    ``cli/upop.py`` (prune, 2 masked AdamW steps, the pruned ``.pth``), its
+    checks, the ``.pth`` read back tensor by tensor and the evaluate CLI's
+    captioning from it. Returns (prune counts, eval counts, readings)."""
+    from ecoflap_tpu_torch.cli import evaluate as ev
+    from ecoflap_tpu_torch.cli import upop
+    from ecoflap_tpu_torch.models import blip1
+    from ecoflap_tpu_torch.runners import finetune as ft
+    from ecoflap_tpu_torch.utils.checkpoint import load_into, load_torch_checkpoint
+
+    pth_dir = tempfile.mkdtemp(prefix="chip_smoke_blip1_")
+    pth = os.path.join(pth_dir, "blip1_caption_pruned.pth")
+    # the masks the launcher freezes, and the weights they were frozen from
+    frozen, make_masks = {}, ft.make_sparsity_masks
+
+    def recording_masks(model):
+        frozen["weights"] = {n: p.detach().clone() for n, p in model.named_parameters()}
+        frozen["masks"] = make_masks(model)
+        return frozen["masks"]
+
+    ft.make_sparsity_masks = recording_masks
+    try:
+        res, wall, counts = run_path(upop, kernels, [
+            "--head", "caption", "--model_scale", "full", "--seed", str(SEED), "--p", "0.5",
+            "--num_samples", str(BLIP1_SAMPLES), "--finetune_steps", str(BLIP1_FT_STEPS),
+            "--save_pruned", pth])
+    finally:
+        ft.make_sparsity_masks = make_masks
+    try:
+        n_mb = BLIP1_SAMPLES // BLIP1_MICROBATCH
+        assert counts == {"perturb_inplace": 3 * BLIP1_TARGETS * n_mb, "perturb": 0,
+                          "flash_attention": 0, "flash_attention_bwd": 0}, counts
+        model, sd = res["model"], res["sparsity_dict"]
+        scores = res["pruner"].leaf_scores
+        keys = {t.name for t in res["adapter"].targets()}
+        assert len(keys) == BLIP1_TARGETS and set(sd) == set(scores) == keys, "BLIP-1 keys"
+        vals = list(scores.values())
+        assert all(math.isfinite(v) and v >= 0 for v in vals) and len(set(vals)) > 1, \
+            "BLIP-1 coarse scores"
+        assert max(sd.values()) <= 0.6 + 1e-9, max(sd.values())
+        assert abs(res["sparsity"] - 0.5) <= 0.01, res["sparsity"]
+        assert res["peak_gib"] <= BLIP1_PEAK_GIB, res["peak_gib"]
+        assert all(math.isfinite(v) for v in (res["ft_loss_first"], res["ft_loss_last"]))
+        changed = kept = 0
+        for n, p in model.named_parameters():
+            m, w0 = frozen["masks"][n], frozen["weights"][n]
+            assert not p[~m].any(), f"{n}: a pruned entry moved in the fine-tune"
+            changed += int((p[m] != w0[m]).sum())
+            kept += int(m.sum())
+        info = {"wall": wall, "prune": res["prune_s"], "phases": res["phase_times"],
+                "ft_s": res["finetune_s_per_step"], "peak": res["peak_gib"],
+                "scores": (min(vals), max(vals)), "max_ratio": max(sd.values()),
+                "sparsity": res["sparsity"], "ft_losses": (res["ft_loss_first"],
+                                                           res["ft_loss_last"]),
+                "changed_share": changed / kept}
+        t0 = time.time()
+        state = load_torch_checkpoint(pth)
+        own = model.state_dict()
+        assert set(state) == set(own), sorted(set(state) ^ set(own))[:5]
+        bad = [k for k in own if not torch.equal(state[k], own[k].float().cpu())]
+        assert not bad, bad[:3]
+        fresh = blip1.build_model(blip1.blip_base(), "blip_caption", device="cuda",
+                                  dtype=torch.bfloat16, seed=None)
+        load_into(fresh, state)
+        assert all(torch.equal(v, own[k]) for k, v in fresh.state_dict().items())
+        info.update(pth_bytes=os.path.getsize(pth), pth_keys=len(state),
+                    pth_read_s=time.time() - t0)
+        del state, own, fresh, res, model, frozen
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the captioning eval from the .pth, each generate call timed
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernels)
+        walls, generate = [], blip1.BlipCaption.generate
+
+        def timed_generate(self, *a, **kw):
+            torch.cuda.synchronize()
+            t = time.time()
+            toks = generate(self, *a, **kw)
+            torch.cuda.synchronize()
+            walls.append(time.time() - t)
+            assert toks.shape == (BLIP1_MICROBATCH, BLIP1_CAPTION_POINT["max_new_tokens"])
+            assert bool(((toks >= 0) & (toks < self.cfg.text.vocab_size)).all())
+            return toks
+
+        blip1.BlipCaption.generate = timed_generate
+        t0 = time.time()
+        try:
+            cap = ev.main(["--model", "blip1", "--task", "captioning", "--model_scale", "full",
+                           "--checkpoint", pth, "--batch_size", str(BLIP1_MICROBATCH),
+                           "--eval_batches", str(BLIP1_EVAL_BATCHES),
+                           "--num_beams", str(BLIP1_CAPTION_POINT["num_beams"]),
+                           "--max_new_tokens", str(BLIP1_CAPTION_POINT["max_new_tokens"]),
+                           "--length_penalty", str(BLIP1_CAPTION_POINT["length_penalty"]),
+                           "--seed", str(SEED), "--output_dir", out_dir])
+        finally:
+            blip1.BlipCaption.generate = generate
+        eval_counts = read_counts(kernels)
+        assert not any(eval_counts.values()), eval_counts  # BERT attention is naive
+        assert len(walls) == BLIP1_EVAL_BATCHES and "agg_metrics" in cap, cap
+        info.update(eval_wall=time.time() - t0, eval_s=cap["eval_time_s"],
+                    generate_s=walls, eval_peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                    token_ms=1e3 * min(walls) / BLIP1_CAPTION_POINT["max_new_tokens"])
+    finally:
+        shutil.rmtree(pth_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, eval_counts, info
+
+
+def write_c4_jsonl(out_dir):
+    """Phase 5's ``--calib`` files, C4-style (a ``{"text": ...}`` object a
+    line): documents of 100-300 words of one hash token each, room for
+    ``LLAMA_SAMPLES`` windows of ``LLAMA_SEQLEN`` and the one more that the
+    CLI asks (some 133k tokens with the EOS that ends each document), and a
+    file too short for them. Returns (path, short path)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    need = LLAMA_SAMPLES * LLAMA_SEQLEN + LLAMA_SEQLEN
+    path = os.path.join(out_dir, "c4_calib.jsonl")
+    with open(path, "w") as f:
+        n = 0
+        while n < need + LLAMA_SEQLEN:
+            words = rng.integers(0, 20000, int(rng.integers(100, 300)))
+            f.write(json.dumps({"text": " ".join(f"w{k}" for k in words)}) + "\n")
+            n += len(words) + 1
+    short = os.path.join(out_dir, "c4_short.jsonl")
+    with open(short, "w") as f:
+        f.write(json.dumps({"text": "a dog runs in the park"}) + "\n")
+    return path, short
+
+
+def run_recording_lm_batch(cli, kernels, argv):
+    """``run_path`` with the LM calibration batch that the CLI builds kept.
+    Returns (result, wall, counts, batch)."""
+    from ecoflap_tpu_torch.data import calibration as cal
+
+    kept, build = {}, cal.build_lm_calibration_batch
+
+    def recording(*a, **kw):
+        kept["batch"] = build(*a, **kw)
+        return kept["batch"]
+
+    cal.build_lm_calibration_batch = recording
+    try:
+        res, wall, counts = run_path(cli, kernels, argv)
+    finally:
+        cal.build_lm_calibration_batch = build
+    return res, wall, counts, kept["batch"]
+
+
+def check_jsonl_calibration(cli, argv, short, batch):
+    """Phase 5's file checks, on the CPU with the CLI's parser and stream
+    reader alone (no model): every calibration window of the run
+    (``batch``) is a window of the file's token stream, and a file too short
+    for the windows ends the run with the JAX CLI's message. Returns
+    (stream tokens, the first window starts, the message)."""
+    import numpy as np
+    from numpy.lib.stride_tricks import sliding_window_view
+
+    from ecoflap_tpu_torch.models import llama
+
+    vocab = llama.config_for_scale("full").vocab_size
+    parser = cli.build_parser()
+    stream = cli._jsonl_stream(parser.parse_args(argv + ["--device", "cpu"]), vocab,
+                               LLAMA_SEQLEN)
+    windows = sliding_window_view(stream, LLAMA_SEQLEN)
+    ids = batch["input_ids"].numpy()
+    assert ids.shape == (LLAMA_SAMPLES, LLAMA_SEQLEN), ids.shape
+    starts = []
+    for row in ids:
+        # candidates by the first 8 tokens, then the whole window
+        cand = np.flatnonzero((windows[:, :8] == row[:8]).all(axis=1))
+        hits = [int(c) for c in cand if np.array_equal(windows[c], row)]
+        assert hits, "a calibration window is not in the file's stream"
+        starts.append(hits[0])
+    argv = list(argv)
+    argv[argv.index("--calib") + 1] = short
+    try:
+        cli._jsonl_stream(parser.parse_args(argv + ["--device", "cpu"]), vocab, LLAMA_SEQLEN)
+        raise AssertionError("a stream too short for the windows did not end the run")
+    except SystemExit as e:
+        message = str(e)
+    need = LLAMA_SAMPLES * LLAMA_SEQLEN + LLAMA_SEQLEN
+    assert message.endswith(f"need >= {need} for {LLAMA_SAMPLES} windows of "
+                            f"{LLAMA_SEQLEN}"), message
+    return len(stream), sorted(starts)[:4], message
+
+
 def log_new_path(name, counts, info):
     log(f"{name} path checks pass: launches {counts}, finite scores in "
         f"[{info['scores'][0]:.4g}, {info['scores'][1]:.4g}], ratios <= "
@@ -2238,6 +2590,7 @@ def main(argv=None) -> int:
     log(f"device: {smi} | torch {torch.__version__} | CUDA {torch.version.cuda} "
         f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.time()
+    log(f"card health: {card_health()}")
     built = build.build()
     log(f"kernel build: {time.time() - t0:.2f} s for {sorted(built)}")
     usage = {}
@@ -2327,8 +2680,8 @@ def main(argv=None) -> int:
             f"({sum(w.values())} launches): kernel {weighted(timings, w, 'ms'):.4f} ms | "
             f"bound {pb:.4f} ms ({pby}) | share of bound "
             f"{pb / weighted(timings, w, 'ms'):.3f}")
-    log(f"perturb_inplace launch-weighted over the serial cycles of phases 5, 14, 16 "
-        f"and 17 ({sum(weights['perturb_inplace'].values())} launches): kernel "
+    log(f"perturb_inplace launch-weighted over the serial cycles of phases 5, 14, 16, "
+        f"17 and 18 ({sum(weights['perturb_inplace'].values())} launches): kernel "
         f"{avg('ms'):.4f} ms "
         f"(through the wrapper {avg('wrapper_ms'):.4f} ms) | bound "
         f"{p_bound:.4f} ms ({p_by}, {PERTURB_OPS_PER_ELEMENT} operations an element) | "
@@ -2412,7 +2765,8 @@ def main(argv=None) -> int:
     del res
 
     phase_ended(4)
-    # -- 5. LLaMA path -------------------------------------------------------------
+    # -- 5. LLaMA path, calibrated from a C4-style jsonl ---------------------------
+    c4_path, c4_short = write_c4_jsonl(out_dir)
     argv = ["--model", "llama", "--model_scale", "full", "--seed", str(SEED),
             "--pruning_method", "llama_wanda_pruner",
             "--prune_spec", f"{LLAMA_LAYERS}-0.4-1.0-1.0",
@@ -2420,9 +2774,9 @@ def main(argv=None) -> int:
             "--score_method", "MEZO-GradOnly_sum", "--max_sparsity_per_layer", "0.7",
             "--num_data_first_stage", str(LLAMA_FIRST_STAGE),
             "--num_samples", str(LLAMA_SAMPLES), "--batch_size", str(LLAMA_BATCH),
-            "--seqlen", str(LLAMA_SEQLEN), "--calib", "synthetic",
+            "--seqlen", str(LLAMA_SEQLEN), "--calib", c4_path,
             "--output_dir", out_dir]
-    res, wall, llama_counts = run_path(cli, kernels, argv)
+    res, wall, llama_counts, llama_batch = run_recording_lm_batch(cli, kernels, argv)
     log_path("LLaMA-7B", res, wall, llama_counts)
     n_targets = 7 * LLAMA_LAYERS
     llama_mb = LLAMA_FIRST_STAGE // LLAMA_BATCH
@@ -2443,9 +2797,14 @@ def main(argv=None) -> int:
         f"in [{min(vals):.4g}, {max(vals):.4g}], ratios <= {max(sd.values()):.4f}, "
         f"global sparsity {res['prunable_sparsity']}")
     del res
+    n_stream, starts, message = check_jsonl_calibration(cli, argv, c4_short, llama_batch)
+    log(f"LLaMA-7B --calib jsonl (CPU, the CLI's parser and stream reader): the "
+        f"{LLAMA_SAMPLES} windows of {LLAMA_SEQLEN} are windows of the file's stream of "
+        f"{n_stream} tokens (first starts {starts}); a short file ends the run: {message!r}")
 
     phase_ended(5)
     # -- 6. LLaMA first-order path ---------------------------------------------------
+    argv[argv.index("--calib") + 1] = "synthetic"
     argv[argv.index("--score_method") + 1] = "GradOnly_sum"
     argv[argv.index("--num_data_first_stage") + 1] = str(LLAMA_FO_FIRST_STAGE)
     res, wall, llama_fo_counts = run_path(cli, kernels, argv)
@@ -2517,7 +2876,8 @@ def main(argv=None) -> int:
     vit_ratio = sd["visual_encoder.blocks.0.attn.qkv.weight"]
     for local, r in vit_block_sparsegpt(torch, vit_ratio).items():
         log(f"ViT-g block 0 {local} at phase 8's init, ratio {vit_ratio:.4f}, SparseGPT "
-            f"card vs CPU from one f32 H: H eigenvalue ratio {r['eig_ratio']:.3e}, "
+            f"card vs CPU from one f32 H (on the card the graphed sweep equals the eager "
+            f"one bit for bit, alone and in 2 lanes): H eigenvalue ratio {r['eig_ratio']:.3e}, "
             f"undamped Cholesky fails (card, CPU) {r['undamped_cholesky_fails']}, mask "
             f"mismatch share {r['mask_share']:.3e}, weights relative L2 {r['rel_l2']:.3e} | "
             f"reconstruction error card {r['recon_card']:.6f}, CPU {r['recon_cpu']:.6f} "
@@ -2596,6 +2956,15 @@ def main(argv=None) -> int:
         f"tiny EVA-CLIP {nf['eva_clip_loss_rel_l2']:.3e}, "
         f"{nf['eva_clip_zero_shot_rel_l2']:.3e}; tiny T5 MMLU first-token logits "
         f"{nf['mmlu_logits_rel_l2']:.3e} (gates {NEW_FAMILY_REL_L2})")
+    b1 = blip1_tiny_checks(torch, P, out_dir)
+    log(f"tiny BLIP-1 card vs CPU, f32, kernels x{BLIP1_TINY_KERNEL_SCALE}: per-sample loss "
+        f"rel L2 (gate {NEW_FAMILY_REL_L2}) and the UPop launcher from one --ckpt (eps "
+        f"{BLIP1_TINY_EPS}, kernel 1 on the card; dicts within rtol {NEW_FAMILY_DICT_RTOL}, "
+        f"mask flips gate {NEW_FAMILY_MASK_SHARE}): " + "; ".join(
+            f"{h} loss {r['loss_rel_l2']:.3e}, flips {r['mask_flip_share']:.2e}, "
+            f"{r['launches']} kernel-1 launches, sparsity {r['sparsity']:.4f}, both "
+            f"launcher runs {r['wall']:.1f} s"
+            for h, r in b1.items()))
     cli_flips, block0 = nf["t5_sparsegpt_cli_batch"]
     log(f"tiny T5 t5_sparsegpt_pruner on the CLI's own batch, card vs CPU, f32: mask flip "
         f"share {cli_flips:.4e} (a reading); encoder block 0 from one H per linear: " + "; ".join(
@@ -2784,7 +3153,36 @@ def main(argv=None) -> int:
     log_new_path("CLIP ViT-B/16 (scripts/coop/ecoflap_wanda.sh)", clip_counts, clip_info)
 
     phase_ended(17)
-    serial = (llama_counts, t5_counts, eva_counts, clip_counts)
+    # -- 18. BLIP-1 caption, the UPop run: prune, fine-tune, .pth, captioning -------
+    blip1_counts, blip1_eval_counts, b = blip1_path(torch, kernels, out_dir)
+    ph = b["phases"]
+    log(f"BLIP-1 caption (blip_base, 384 px, bf16; cli/upop.py --head caption, "
+        f"{BLIP1_SAMPLES} samples, p 0.5): {b['wall']:.1f} s incl. model init | prune "
+        f"{b['prune']:.2f} s: coarse {ph['coarse_s']:.2f} s, fine "
+        + ", ".join(f"{k[len('fine_'):-2]} {v:.2f} s" for k, v in ph.items()
+                    if k.startswith("fine_"))
+        + f" | fine-tune {b['ft_s']:.3f} s a step, loss {b['ft_losses'][0]:.6f} -> "
+        f"{b['ft_losses'][1]:.6f} | peak {b['peak']:.2f} GiB | launches {blip1_counts} | "
+        f"{smi}")
+    log(f"BLIP-1 caption path checks pass: {blip1_counts['perturb_inplace']} kernel-1 "
+        f"launches (3 x {BLIP1_TARGETS} x {BLIP1_SAMPLES // BLIP1_MICROBATCH}), finite "
+        f"scores in [{b['scores'][0]:.4g}, {b['scores'][1]:.4g}] under the reference keys, "
+        f"block ratios <= {b['max_ratio']:.4f}, global sparsity {b['sparsity']:.4f}; "
+        f"{BLIP1_FT_STEPS} masked AdamW steps kept every pruned entry 0 and changed "
+        f"{b['changed_share']:.4f} of the unpruned weights (bf16: an update of about "
+        f"1e-5 rounds away on most) | .pth {b['pth_bytes']} bytes, {b['pth_keys']} keys, "
+        f"read back and into a fresh model {b['pth_read_s']:.2f} s, every tensor equal")
+    log(f"BLIP-1 captioning from the .pth (evaluate CLI, {BLIP1_EVAL_BATCHES} batches of "
+        f"{BLIP1_MICROBATCH}, beam {BLIP1_CAPTION_POINT['num_beams']}, "
+        f"{BLIP1_CAPTION_POINT['max_new_tokens']} tokens): {b['eval_wall']:.1f} s incl. "
+        f"model load | eval {b['eval_s']} s | generate walls "
+        + ", ".join(f"{w:.3f}" for w in b["generate_s"])
+        + f" s, {b['token_ms']:.2f} ms a token (the best batch over its "
+        f"{BLIP1_CAPTION_POINT['max_new_tokens']} steps, image encode and prefill "
+        f"included) | peak {b['eval_peak']:.2f} GiB | launches {blip1_eval_counts} | {smi}")
+
+    phase_ended(18)
+    serial = (llama_counts, t5_counts, eva_counts, clip_counts, blip1_counts)
     assert sum(weights["perturb_inplace"].values()) == sum(
         c["perturb_inplace"] for c in serial) + blip_counts["perturb_inplace"]
     assert sum(weights["perturb"].values()) == blip_counts["perturb"] + sum(
@@ -2794,7 +3192,8 @@ def main(argv=None) -> int:
              "blip2_t5_sparsegpt": sgpt_counts, "blip2_t5_global_mag": mag_counts,
              "blip2_t5_global_gradmagabs": grad_counts, "blip2_t5_eval_vqa": eval_counts,
              "llama_wikitext_ppl": ppl_counts, "t5": t5_counts, "t5_mmlu": mmlu_counts,
-             "eva_clip": eva_counts, "clip": clip_counts}
+             "eva_clip": eva_counts, "clip": clip_counts, "blip1_upop_caption": blip1_counts,
+             "blip1_eval_captioning": blip1_eval_counts}
     by_path = {k: {p: c[k] for p, c in paths.items()} for k in kernels}
     launches = {k: sum(by_path[k].values()) for k in kernels}
     log(json.dumps({"kernels": [

@@ -24,6 +24,13 @@ perplexity on a random stream of 64 x 32 tokens:
   python -m ecoflap_tpu_torch.cli.evaluate --model llama \\
       --task wikitext_ppl --model_scale full --synthetic --seqlen 2048
 
+BLIP-1 (``--model blip1``, ``blip_base`` at small and full) evaluates the
+JAX CLI's synthetic retrieval, VQA, NLVR and captioning from a random init
+or a UPop ``--checkpoint``:
+
+  python -m ecoflap_tpu_torch.cli.evaluate --model blip1 --task captioning \
+      --model_scale full --checkpoint pruned.pth --num_beams 3 --max_new_tokens 20
+
 FlanT5's synthetic MMLU reads the first decoder step's logits at the ids of
 A/B/C/D for 8 random questions of ``college_physics`` (5 shots, hash-token
 prompts cut at 64 tokens); CLIP's synthetic zero-shot classification builds
@@ -232,7 +239,102 @@ def _synthetic_eval(args, device: torch.device, dtype: torch.dtype) -> Dict[str,
                           max_tokens=2048)
         return runner.evaluate(task, {"college_physics": {"dev": dev, "test": test}})
 
+    if args.model == "blip1" and args.task in BLIP1_KINDS:
+        return _blip1_eval(args, device, dtype, rng, runner)
+
     raise _not_ported(args, "synthetic")
+
+
+BLIP1_KINDS = {"retrieval": "blip_retrieval", "vqa": "blip_vqa", "nlvr": "blip_nlvr",
+               "captioning": "blip_caption"}
+
+
+def _blip1_eval(args, device, dtype, rng, runner) -> Dict[str, Any]:
+    """The JAX CLI's blip1 branches (evaluate.py:311-360, 385-499), on
+    random images and hash-token texts: retrieval (ITC similarity, then an
+    ITM re-rank of each side's top 8, the two sides ranked apart), VQA (rank
+    inference over an 18-answer list, top 8 by the first token), NLVR (the
+    2-way head's accuracy) and captioning (beam search from "a picture of",
+    min length 5). ``--checkpoint`` loads a UPop ``.pth`` in ``--dtype``."""
+    from ecoflap_tpu_torch.data.calibration import HashTokenizer
+    from ecoflap_tpu_torch.models import blip1
+    from ecoflap_tpu_torch.models.generation import GenerateConfig
+    from ecoflap_tpu_torch.tasks import setup_task
+
+    cfg = blip1.config_for_scale(args.model_scale)
+    model = blip1.build_model(cfg, BLIP1_KINDS[args.task], device=device, dtype=dtype,
+                              seed=None if args.checkpoint else args.seed)
+    if args.checkpoint:
+        _load_pth(model, args.checkpoint)
+    tok = HashTokenizer(vocab_size=cfg.text.vocab_size)
+    img, n = cfg.vit.img_size, args.batch_size
+
+    def dev(a):
+        return torch.from_numpy(np.asarray(a)).to(device)
+
+    def images():
+        return rng.normal(size=(n, img, img, 3)).astype(np.float32)
+
+    if args.task == "retrieval":
+        ims = images()
+        ids, mask = tok([f"caption {i}" for i in range(n)], max_length=8)
+
+        @torch.inference_mode()
+        def sim_fn(_):
+            return model.sim_matrix(dev(ims), dev(ids), dev(mask)).cpu().numpy()
+
+        @torch.inference_mode()
+        def itm_match(img_rows, txt_rows):
+            lg = model.itm_logits(dev(ims[img_rows]), dev(ids[txt_rows]), dev(mask[txt_rows]))
+            return lg[:, 1].cpu().numpy()
+
+        return runner.evaluate(setup_task("retrieval", sim_fn, itm_match, min(8, n)), {})
+
+    if args.task == "vqa":
+        answers = [f"answer {i}" for i in range(16)] + ["yes", "no"]
+        a_ids, a_mask = tok(answers, max_length=6, add_eos=False)
+        bos = np.full((len(answers), 1), 2, np.int64)  # the shared decoder bos
+        a_ids = np.concatenate([bos, a_ids], 1)
+        a_mask = np.concatenate([np.ones_like(bos), a_mask], 1)
+
+        def predict_fn(batch):
+            ids, mask = tok(batch["text_input"], max_length=12)
+            idx = model.rank_answers(dev(batch["image"]), dev(ids), dev(mask), dev(a_ids),
+                                     dev(a_mask), k=8)
+            return [answers[i] for i in idx.cpu().tolist()]
+
+        batches = [{"image": images(), "text_input": [f"question {i}" for i in range(n)],
+                    "gt_answers": [["yes"] * 10 for _ in range(n)]}
+                   for _ in range(args.eval_batches)]
+        return runner.evaluate(setup_task("vqa", predict_fn), batches)
+
+    if args.task == "nlvr":
+        @torch.inference_mode()
+        def predict_fn(batch):
+            ids, mask = tok(batch["text_input"], max_length=12)
+            return model.nlvr_forward({"image0": dev(batch["image0"]),
+                                       "image1": dev(batch["image1"]),
+                                       "text_ids": dev(ids), "text_mask": dev(mask)})
+
+        batches = [{"image0": images(), "image1": images(),
+                    "text_input": [f"statement {i}" for i in range(n)],
+                    "label": rng.integers(0, 2, size=(n,))}
+                   for _ in range(args.eval_batches)]
+        return runner.evaluate(setup_task("multimodal_classification", predict_fn), batches)
+
+    gen = GenerateConfig(max_new_tokens=args.max_new_tokens, num_beams=args.num_beams,
+                         min_length=5, length_penalty=args.length_penalty)
+    prompt = np.asarray(tok(["a picture of"], max_length=8, add_eos=False, pad=False)[0],
+                        np.int64)  # unpadded: every row shares it
+
+    def gen_fn(batch):
+        ids = np.repeat(prompt, len(batch["image"]), axis=0)
+        return _decode_all(tok, model.generate(dev(batch["image"]), dev(ids), gen))
+
+    batches = [{"image": images(), "image_id": list(range(i * n, (i + 1) * n)),
+                "gt_captions": [["a picture"] for _ in range(n)]}
+               for i in range(args.eval_batches)]
+    return runner.evaluate(setup_task("captioning", gen_fn), batches)
 
 
 def mmlu_logits_fn(model, tok, device, max_length: int = 64):

@@ -74,7 +74,10 @@ CoOp launcher's CLIP prune are
 (CLIP and EVA-CLIP calibrate on random images and text ids, or with
 ``--calib <image folder> --dataset <CoOp name>`` on the folder's images and
 their class's CoOp prompt; the EVA-CLIP ``.pth`` holds the visual tower
-without its last block, as the reference exports it).
+without its last block, as the reference exports it). BLIP-2 calibrates on
+files with ``--calib <LAVIS caption annotations> --vis_root <image root>``,
+LLaMA with ``--calib <C4-style jsonl>`` (``--tokenizer_path`` for a real
+vocabulary); standalone T5 refuses ``--calib``, which the JAX CLI ignores.
 
 The MeZO coarse stage scores BLIP-2's targets a block at a time by the lane
 ensemble and LLaMA's by the serial in-place cycle; standalone T5 and CLIP
@@ -168,8 +171,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--coarse_only", action="store_true",
                    help="write the coarse stage's sparsity dict and stop")
     p.add_argument("--calib", default="synthetic",
-                   help="synthetic, or for clip/eva_clip an image-folder root "
+                   help="synthetic; blip2_t5: LAVIS caption annotations (json, "
+                        "images under --vis_root); llama: a C4-style jsonl of "
+                        '{"text": ...} lines; clip/eva_clip: an image-folder root '
                         "(class subdirectories)")
+    p.add_argument("--vis_root", default="",
+                   help="image root for blip2_t5 --calib annotations")
+    p.add_argument("--tokenizer_path", default=None,
+                   help="local tokenizer.json for the --calib text (without it "
+                        "hash tokens, loudly)")
     p.add_argument("--dataset", default="imagenet",
                    help="clip/eva_clip --calib: the folder's builder and CoOp "
                         "prompt template (any of the 11 CoOp dataset names)")
@@ -196,7 +206,52 @@ def _synthetic_only(args) -> None:
     if args.calib != "synthetic":
         raise NotImplementedError(
             f"--calib {args.calib!r}: {args.model} calibrates on synthetic data only "
-            "in ecoflap_tpu_torch (real calibration files wait; ROADMAP.md)")
+            "in ecoflap_tpu_torch (the JAX CLI ignores it; ROADMAP.md, section 3)")
+
+
+def _caption_samples(args, img_size: int):
+    """--calib caption annotations through the ``coco_caption`` builder and
+    the eval transform, each sample's first caption, cycled to
+    ``--num_samples`` (cli/prune.py:223-246; the reference's count-limited
+    loader, runner_base.py:645-693)."""
+    from ecoflap_tpu_torch.core.registry import registry
+    from ecoflap_tpu_torch.data import datasets  # noqa: F401 (registers builders)
+    from ecoflap_tpu_torch.data.processors import ImageEvalProcessor
+
+    ds = registry.get("builder", "coco_caption")(
+        {"vis_root": args.vis_root, "ann_paths": [args.calib]},
+        vis_processor=ImageEvalProcessor(image_size=img_size))
+    samples = []
+    for i in range(min(len(ds), args.num_samples)):
+        item = ds[i]
+        caps = item.get("gt_captions") or [item.get("text_input", "")]
+        samples.append({"image": item["image"],
+                        "caption": caps[0] if isinstance(caps, list) else caps})
+    while len(samples) < args.num_samples:
+        samples.append(samples[len(samples) % max(len(ds), 1)])
+    return samples
+
+
+def _jsonl_stream(args, vocab_size: int, seqlen: int) -> np.ndarray:
+    """--calib C4-style jsonl: each document tokenized with EOS, all joined
+    into one stream (cli/prune.py:475-497; wanda lib/data.py get_c4). A
+    stream too short for ``--num_samples`` windows ends the run."""
+    from ecoflap_tpu_torch.core.registry import registry
+    from ecoflap_tpu_torch.data import calibration as cal
+    from ecoflap_tpu_torch.data import datasets  # noqa: F401 (registers builders)
+
+    tok = cal.load_t5_tokenizer(vocab_size=vocab_size, path=args.tokenizer_path)
+    ds = registry.get("builder", "c4")({"jsonl_path": args.calib})
+    pieces = [np.asarray(tok([t], max_length=10 ** 9, add_eos=True, pad=False)[0][0],
+                         np.int64) for t in ds.texts]
+    stream = np.concatenate(pieces)
+    need = args.num_samples * seqlen + seqlen
+    if stream.shape[0] < need:
+        raise SystemExit(
+            f"--calib {args.calib}: {stream.shape[0]} tokens after "
+            f"tokenization, need >= {need} for {args.num_samples} "
+            f"windows of {seqlen}")
+    return stream
 
 
 def _blip2(args, device, dtype):
@@ -204,17 +259,25 @@ def _blip2(args, device, dtype):
     from ecoflap_tpu_torch.data import calibration as cal
     from ecoflap_tpu_torch.models import blip2
 
-    _synthetic_only(args)
     cfg = blip2.config_for_scale(args.model_scale)
     model = blip2.build_model(cfg, device=device, dtype=dtype,
                               seed=None if args.ckpt else args.seed)
     if args.ckpt:
         _load_ckpt(model, args.ckpt)
     spec = cal.CalibrationSpec(args.num_samples, args.batch_size)
-    samples = cal.synthetic_vl_samples(args.num_samples, cfg.vit.img_size,
-                                       args.seed)
-    batch = cal.build_vl_calibration_batch(
-        samples, cal.HashTokenizer(vocab_size=cfg.t5.vocab_size), spec, args.seed)
+    if args.calib != "synthetic":
+        samples = _caption_samples(args, cfg.vit.img_size)
+        tok = cal.load_t5_tokenizer(vocab_size=cfg.t5.vocab_size,
+                                    path=args.tokenizer_path)
+    else:
+        samples = cal.synthetic_vl_samples(args.num_samples, cfg.vit.img_size,
+                                           args.seed)
+        tok = cal.HashTokenizer(vocab_size=cfg.t5.vocab_size)
+    batch = cal.build_vl_calibration_batch(samples, tok, spec, args.seed)
+    if args.model_scale == "tiny":  # a file tokenizer's ids into the tiny vocab
+        v = cfg.t5.vocab_size
+        batch = {**batch, "text_input_ids": batch["text_input_ids"] % v,
+                 "labels": torch.where(batch["labels"] == -100, -100, batch["labels"] % v)}
     stack_specs = {}
     if args.vit_prune_spec:
         stack_specs["visual_encoder.blocks"] = args.vit_prune_spec
@@ -229,15 +292,17 @@ def _llama(args, device, dtype):
     from ecoflap_tpu_torch.data import calibration as cal
     from ecoflap_tpu_torch.models import llama
 
-    _synthetic_only(args)
     cfg = llama.config_for_scale(args.model_scale)
     seqlen = args.seqlen if args.model_scale in ("full", "small") else 32
     model = llama.build_model(cfg, device=device, dtype=dtype,
                               seed=None if args.ckpt else args.seed)
     if args.ckpt:
         _load_ckpt(model, args.ckpt)
-    stream = cal.synthetic_token_stream(args.num_samples, seqlen, cfg.vocab_size,
-                                        args.seed)
+    if args.calib != "synthetic":
+        stream = _jsonl_stream(args, cfg.vocab_size, seqlen)
+    else:
+        stream = cal.synthetic_token_stream(args.num_samples, seqlen, cfg.vocab_size,
+                                            args.seed)
     batch = cal.build_lm_calibration_batch(stream, args.num_samples, seqlen,
                                            args.seed)
     stack_specs = {"model.layers": args.prune_spec} if args.prune_spec else {}

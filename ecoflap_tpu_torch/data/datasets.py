@@ -4,10 +4,13 @@ reference LAVIS/lavis/datasets/builders/__init__.py:10-49).
 
 A builder takes ``{"vis_root": ..., "ann_paths": [...]}``, loads LAVIS-style
 JSON annotations and yields plain dict samples; ``batch_iterator`` stacks
-them. Registered: ``coco_vqa``, ``ok_vqa``, ``aok_vqa`` (VQA), ``gqa`` and
-``coco_caption``, ``nocaps`` (captions), and the image folders ``imagenet``
-and ``cifar100`` (``ImageFolderDataset``; the 11 CoOp dataset names register
-in ``data/coop.py``). The data must be on local disk.
+them. Registered: ``coco_vqa``, ``ok_vqa``, ``aok_vqa`` (VQA), ``gqa``,
+``coco_caption``, ``nocaps`` (captions), ``coco_retrieval``, ``flickr30k``
+(retrieval), ``nlvr``, ``prefix_conceptual_caption_3m``/``_12m``
+(calibration pairs), the image folders ``imagenet`` and ``cifar100``
+(``ImageFolderDataset``; the 11 CoOp dataset names register in
+``data/coop.py``), and the text sources ``c4`` (a ``{"text": ...}`` jsonl)
+and ``wikitext2`` (a raw text file). The data must be on local disk.
 """
 
 from __future__ import annotations
@@ -99,6 +102,75 @@ class CaptionDataset(AnnotationDataset):
             "gt_captions": [self.text_processor(c) for c in caps],
             "image_id": ann.get("image_id", i),
         }
+
+
+@registry.register("builder", "coco_retrieval")
+@registry.register("builder", "flickr30k")
+class RetrievalDataset(CaptionDataset):
+    pass
+
+
+@registry.register("builder", "nlvr")
+class NLVRDataset(AnnotationDataset):
+    def __getitem__(self, i: int) -> Dict[str, Any]:
+        ann = self.annotation[i]
+        return {
+            "image0": self._load_image(ann["images"][0]),
+            "image1": self._load_image(ann["images"][1]),
+            "text_input": self.text_processor(ann["sentence"]),
+            "label": 1 if str(ann.get("label", "")).lower() == "true" else 0,
+        }
+
+
+@registry.register("builder", "prefix_conceptual_caption_3m")
+@registry.register("builder", "prefix_conceptual_caption_12m")
+class PrefixCaptionDataset(AnnotationDataset):
+    """(image, caption) calibration pairs; the prefix/suffix split happens in
+    ``calibration.build_vl_calibration_batch`` (datasets.py:199-211)."""
+
+    def __getitem__(self, i: int) -> Dict[str, Any]:
+        ann = self.annotation[i]
+        return {
+            "image": self._load_image(ann["image"]),
+            "caption": self.text_processor(ann["caption"]),
+        }
+
+
+@registry.register("builder", "c4")
+class C4Dataset:
+    """C4 documents from a local jsonl of ``{"text": ...}`` lines
+    (``cfg["jsonl_path"]``; datasets.py:214-245). The JAX builder's other
+    source, allenai/c4 through the HF datasets cache, needs a download: it
+    raises here."""
+
+    def __init__(self, cfg: Dict[str, Any], text_processor=None, **_):
+        self.text_processor = text_processor or (lambda x: x)
+        path = cfg.get("jsonl_path")
+        if not path:
+            raise RuntimeError(
+                "c4 needs cfg['jsonl_path'], a local jsonl of {\"text\": ...} lines: "
+                "the HF datasets cache of allenai/c4 would need a download")
+        with open(path) as f:
+            self.texts = [json.loads(line)["text"] for line in f if line.strip()]
+
+    def __len__(self):
+        return len(self.texts)
+
+    def __getitem__(self, i):
+        return {"text": self.text_processor(self.texts[i])}
+
+
+@registry.register("builder", "wikitext2")
+class WikiTextDataset:
+    """A raw text file, one token stream for perplexity (datasets.py:255-266)."""
+
+    def __init__(self, cfg: Dict[str, Any], **_):
+        with open(cfg["text_path"]) as f:
+            self.text = f.read()
+
+    def token_stream(self, tokenizer) -> np.ndarray:
+        ids, _ = tokenizer([self.text], max_length=10 ** 9, add_eos=False, pad=False)
+        return np.asarray(ids[0], np.int32)
 
 
 @registry.register("builder", "imagenet")

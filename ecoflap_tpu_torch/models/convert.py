@@ -1,5 +1,5 @@
 """Load the JAX package's parameters into the port's model: BLIP-2, LLaMA,
-standalone T5 and CLIP / EVA-CLIP.
+standalone T5, CLIP / EVA-CLIP, BERT and the four BLIP-1 heads.
 
 ``flat`` is the JAX pytree as numpy arrays under dotted names (what
 ``ecoflap_tpu.core.pytree.flatten_named`` gives). Stacked ``(L, ...)`` leaves
@@ -7,7 +7,9 @@ split into the per-block modules, ``(in, out)`` kernels transpose to
 ``(out, in)``, ``scale`` becomes a norm's ``weight``, and the T5 relative
 bias tables move onto block 0 as in HF. LLaMA takes the HF names that
 ``ecoflap_tpu/utils/checkpoint.py:export_llama`` writes, T5 those of
-``export_t5`` and CLIP OpenAI's (``convert_clip``, checkpoint.py:316-379).
+``export_t5`` and CLIP OpenAI's (``convert_clip``, checkpoint.py:316-379),
+BERT and BLIP-1 UPop's (``export_bert_stack``, ``export_blip1``,
+checkpoint.py:599-849), NLVR's merge layers on every layer.
 """
 
 from __future__ import annotations
@@ -17,9 +19,12 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ecoflap_tpu_torch.models import bert as bert_mod
+from ecoflap_tpu_torch.models import blip1 as blip1_mod
 from ecoflap_tpu_torch.models import clip as clip_mod
 from ecoflap_tpu_torch.models import llama as llama_mod
 from ecoflap_tpu_torch.models import t5 as t5_mod
+from ecoflap_tpu_torch.utils.checkpoint import unsaved_parameters
 
 Flat = Dict[str, np.ndarray]
 
@@ -40,9 +45,17 @@ def _norm(sd, name, flat, src, i=None, bias=True):
         sd[f"{name}.bias"] = b if i is None else b[i]
 
 
-def jax_to_state_dict(flat: Flat, cfg) -> Dict[str, np.ndarray]:
+def jax_to_state_dict(flat: Flat, cfg, model=None) -> Dict[str, np.ndarray]:
     """The port's state dict (reference names) from the JAX flat params, by
-    the model family of ``cfg``."""
+    the model family of ``cfg`` (BERT and BLIP-1 read ``model``'s layout:
+    an LM head or not, the BLIP-1 head)."""
+    if isinstance(cfg, bert_mod.BertConfig):
+        sd: Dict[str, np.ndarray] = {}
+        lm = isinstance(model, bert_mod.BertLMHeadModel)
+        _bert_into(sd, flat, cfg, "", "bert." if lm else "", lm_head=lm)
+        return sd
+    if isinstance(cfg, blip1_mod.Blip1Config):
+        return _blip1_state_dict(flat, cfg, model.kind)
     if isinstance(cfg, llama_mod.LlamaConfig):
         return _llama_state_dict(flat, cfg)
     if isinstance(cfg, t5_mod.T5Config):
@@ -83,9 +96,11 @@ def _eva_into(sd, flat: Flat, v, pv: str) -> None:
     for i in range(v.depth):
         tb = f"{pv}.blocks.{i}"
         _norm(sd, f"{tb}.norm1", flat, f"{jb}.norm1", i)
-        _dense(sd, f"{tb}.attn.qkv", flat, f"{jb}.attn.qkv", i, bias=False)
-        sd[f"{tb}.attn.q_bias"] = flat[f"{jb}.attn.q_bias"][i]
-        sd[f"{tb}.attn.v_bias"] = flat[f"{jb}.attn.v_bias"][i]
+        full = v.qkv_bias_mode == "full"  # BLIP-1's ViT-B
+        _dense(sd, f"{tb}.attn.qkv", flat, f"{jb}.attn.qkv", i, bias=full)
+        if not full:
+            sd[f"{tb}.attn.q_bias"] = flat[f"{jb}.attn.q_bias"][i]
+            sd[f"{tb}.attn.v_bias"] = flat[f"{jb}.attn.v_bias"][i]
         _dense(sd, f"{tb}.attn.proj", flat, f"{jb}.attn.proj", i)
         _norm(sd, f"{tb}.norm2", flat, f"{jb}.norm2", i)
         _dense(sd, f"{tb}.mlp.fc1", flat, f"{jb}.mlp.fc1", i)
@@ -183,12 +198,70 @@ def _clip_state_dict(flat: Flat, cfg) -> Dict[str, np.ndarray]:
     return sd
 
 
+def _bert_into(sd, flat: Flat, cfg, jp: str, tp: str, lm_head: bool = False,
+               nlvr: bool = False) -> None:
+    """A BERT tower from JAX prefix ``jp`` to the port's ``tp`` (``bert.``
+    inside an LM head model); ``lm_head`` adds the ``cls`` head at
+    ``tp``'s ``cls.``, tied decoder included; ``nlvr`` the twin cross."""
+    sd[f"{tp}embeddings.word_embeddings.weight"] = flat[f"{jp}embeddings.word"]
+    sd[f"{tp}embeddings.position_embeddings.weight"] = flat[f"{jp}embeddings.position"]
+    _norm(sd, f"{tp}embeddings.LayerNorm", flat, f"{jp}embeddings.ln")
+    jb = f"{jp}blocks"
+    cross = ((("self0", "query", "key", "value"), ("self1", "query1", "key1", "value1"))
+             if nlvr else (("self", "query", "key", "value"),))
+    for i in range(cfg.num_layers):
+        tl = f"{tp}encoder.layer.{i}"
+        for proj in ("query", "key", "value"):
+            _dense(sd, f"{tl}.attention.self.{proj}", flat, f"{jb}.attn.{proj}", i)
+        _dense(sd, f"{tl}.attention.output.dense", flat, f"{jb}.attn.out", i)
+        _norm(sd, f"{tl}.attention.output.LayerNorm", flat, f"{jb}.attn.ln", i)
+        if cfg.add_cross_attention:
+            for name, *projs in cross:
+                for proj, src in zip(("query", "key", "value"), projs):
+                    _dense(sd, f"{tl}.crossattention.{name}.{proj}", flat,
+                           f"{jb}.cross.{src}", i)
+            outs = (("dense0", "out"), ("dense1", "out1"), ("merge_layer", "merge")) \
+                if nlvr else (("dense", "out"),)
+            for name, src in outs:
+                _dense(sd, f"{tl}.crossattention.output.{name}", flat, f"{jb}.cross.{src}", i)
+            _norm(sd, f"{tl}.crossattention.output.LayerNorm", flat, f"{jb}.cross.ln", i)
+        _dense(sd, f"{tl}.intermediate.dense", flat, f"{jb}.ffn.intermediate", i)
+        _dense(sd, f"{tl}.output.dense", flat, f"{jb}.ffn.out", i)
+        _norm(sd, f"{tl}.output.LayerNorm", flat, f"{jb}.ffn.ln", i)
+    if lm_head:
+        cp = tp[:-len("bert.")] + "cls.predictions"
+        _dense(sd, f"{cp}.transform.dense", flat, f"{jp}cls.transform")
+        _norm(sd, f"{cp}.transform.LayerNorm", flat, f"{jp}cls.transform_ln")
+        sd[f"{cp}.bias"] = sd[f"{cp}.decoder.bias"] = flat[f"{jp}cls.decoder_bias"]
+        sd[f"{cp}.decoder.weight"] = flat[f"{jp}embeddings.word"]
+
+
+def _blip1_state_dict(flat: Flat, cfg, kind: str) -> Dict[str, np.ndarray]:
+    sd: Dict[str, np.ndarray] = {}
+    _eva_into(sd, flat, cfg.vit, "visual_encoder")
+    if kind in ("blip_caption", "blip_vqa"):
+        _bert_into(sd, flat, cfg.text, "text_decoder.", "text_decoder.bert.", lm_head=True)
+    if kind != "blip_caption":
+        _bert_into(sd, flat, cfg.encoder_text, "text_encoder.", "text_encoder.",
+                   nlvr=kind == "blip_nlvr")
+    heads = {"blip_caption": ("vision_proj", "text_proj"),
+             "blip_retrieval": ("vision_proj", "text_proj", "itm_head")}.get(kind, ())
+    for head in heads:
+        _dense(sd, head, flat, head)
+    if kind == "blip_nlvr":
+        _dense(sd, "cls_head.0", flat, "cls_head.dense")
+        _dense(sd, "cls_head.2", flat, "cls_head.out")
+    return sd
+
+
 @torch.no_grad()
 def load_jax_params(model, flat: Flat) -> None:
     """Copy the JAX params into ``model`` in place, casting to each
-    parameter's dtype. Every port parameter must be covered exactly."""
-    sd = jax_to_state_dict({k: np.asarray(a) for k, a in flat.items()}, model.cfg)
-    own = model.state_dict()
+    parameter's dtype. Every port parameter must be covered exactly, those
+    its state dict leaves out too (NLVR's unused merge layers)."""
+    sd = jax_to_state_dict({k: np.asarray(a) for k, a in flat.items()}, model.cfg, model)
+    own = dict(model.state_dict())
+    own.update(unsaved_parameters(model))
     missing, extra = set(own) - set(sd), set(sd) - set(own)
     if missing or extra:
         raise KeyError(f"JAX params do not match the model: missing "

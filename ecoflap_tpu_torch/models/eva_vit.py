@@ -3,7 +3,9 @@ of ``ecoflap_tpu/models/eva_vit.py``; reference LAVIS/lavis/models/eva_vit.py).
 
 BLIP-2's tower: depth 39, width 1408, 16 heads, patch 14, fused qkv with
 separate q/v biases (no k bias), absolute position embedding, no final norm;
-it returns every token. EVA-CLIP-g's (``eva_clip_g_visual``): depth 40, then
+it returns every token. BLIP-1's ViT-B/16 (``qkv_bias_mode="full"``, one
+fused qkv bias) applies ``norm`` to every token (``models/blip1.py``).
+EVA-CLIP-g's (``eva_clip_g_visual``): depth 40, then
 the cls token through a final LayerNorm (``norm``) and a linear ``head`` to
 the 1024-d joint space (eva_vit.py:56-57, 147-152, 248-262). Patch embedding is
 one matmul over extracted patches; the weight keeps the reference's Conv2d
@@ -45,6 +47,9 @@ class EvaViTConfig:
     final_norm: bool = False  # EVA-CLIP: LayerNorm before the head
     head_dim: int = 0  # EVA-CLIP: linear head to the joint space (0: none)
     ln_eps: float = 1e-6
+    # "eva": fused qkv, separate q/v biases, no k bias (eva_vit.py:79-85);
+    # "full": fused qkv with one full bias (timm / BLIP ViT-B)
+    qkv_bias_mode: str = "eva"
 
     @property
     def num_patches(self) -> int:
@@ -88,12 +93,20 @@ class PatchEmbed(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, d: int):
+    def __init__(self, d: int, full_bias: bool = False):
         super().__init__()
-        self.qkv = nn.Linear(d, 3 * d, bias=False)
-        self.q_bias = nn.Parameter(torch.empty(d))
-        self.v_bias = nn.Parameter(torch.empty(d))
+        self.qkv = nn.Linear(d, 3 * d, bias=full_bias)
+        if not full_bias:
+            self.q_bias = nn.Parameter(torch.empty(d))
+            self.v_bias = nn.Parameter(torch.empty(d))
         self.proj = nn.Linear(d, d)
+
+    def qkv_bias(self) -> torch.Tensor:
+        """The fused qkv's bias: the full vector, or [q_bias, 0, v_bias]
+        (eva_vit.py:123-128)."""
+        if self.qkv.bias is not None:
+            return self.qkv.bias
+        return torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
 
 
 class Mlp(nn.Module):
@@ -111,7 +124,7 @@ class Block(nn.Module):
         self.cfg = cfg
         d = cfg.embed_dim
         self.norm1 = nn.LayerNorm(d, eps=cfg.ln_eps)
-        self.attn = Attention(d)
+        self.attn = Attention(d, cfg.qkv_bias_mode == "full")
         self.norm2 = nn.LayerNorm(d, eps=cfg.ln_eps)
         self.mlp = Mlp(d, cfg.mlp_hidden)
 
@@ -122,9 +135,7 @@ class Block(nn.Module):
         stats: Dict[str, torch.Tensor] = {}
         h = layer_norm(x, self.norm1.weight, self.norm1.bias, cfg.ln_eps)
         collect_stats(stats, "attn.qkv", h, collect)
-        # fused qkv: no kernel bias, add [q_bias, 0, v_bias] (eva_vit.py:123-128)
-        qkv_bias = torch.cat([a.q_bias, torch.zeros_like(a.q_bias), a.v_bias])
-        q, k, v = F.linear(h, a.qkv.weight, qkv_bias).chunk(3, dim=-1)
+        q, k, v = F.linear(h, a.qkv.weight, a.qkv_bias()).chunk(3, dim=-1)
         o = attention(q, k, v, cfg.num_heads)
         x = x + dense(a.proj, o, name="attn.proj", stats=stats, collect=collect)
         h = layer_norm(x, self.norm2.weight, self.norm2.bias, cfg.ln_eps)
@@ -187,8 +198,11 @@ class EvaViT(nn.Module):
                 norm.weight.fill_(1.0)
                 norm.bias.zero_()
             normal_(blk.attn.qkv.weight, 0.02, gen)
-            blk.attn.q_bias.zero_()
-            blk.attn.v_bias.zero_()
+            if blk.attn.qkv.bias is not None:
+                blk.attn.qkv.bias.zero_()
+            else:
+                blk.attn.q_bias.zero_()
+                blk.attn.v_bias.zero_()
             for lin in (blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2):
                 normal_(lin.weight, 0.02, gen)
                 lin.bias.zero_()

@@ -29,7 +29,7 @@ float32 for every |logp| < 32).
 
 The model plugs in as ``step_fn(tokens, pos, cache) -> (logits, cache)``;
 beam search reorders the cache through ``cache.reorder(rows, length)``.
-T5's step and cache live here.
+T5's and BERT's (BLIP-1 captions) steps and caches live here.
 """
 
 from __future__ import annotations
@@ -43,7 +43,14 @@ import torch
 import torch.nn.functional as F
 
 from ecoflap_tpu_torch.models import t5 as t5_mod
-from ecoflap_tpu_torch.models.layers import logits_f32, mask_bias, rms_norm
+from ecoflap_tpu_torch.models.bert import make_cache as bert_cache_biases
+from ecoflap_tpu_torch.models.layers import (
+    attention,
+    layer_norm,
+    logits_f32,
+    mask_bias,
+    rms_norm,
+)
 
 StepFn = Callable[[torch.Tensor, int, Any], Tuple[torch.Tensor, Any]]
 
@@ -357,3 +364,116 @@ def t5_generate(model: t5_mod.T5Model, enc_out: torch.Tensor, enc_mask: torch.Te
     step = make_t5_step_fn(model, gen.max_new_tokens, nb)
     run = beam_generate if nb > 1 else greedy_generate
     return run(step, cache, enc_out.shape[0], gen, device=enc_out.device)
+
+
+# -- BERT cached decoding (BLIP-1 captions) ------------------------------------------
+
+@dataclass
+class BertCache:
+    """The BERT decoder's cache (bert.py:init_gen_cache), rows = B * beams,
+    sample-major, in the weights' dtype:
+
+    * ``self_k``/``self_v``: (L, rows, P + S, D), the prompt prefix's keys
+      and values (P tokens), then one slot per generated step;
+    * ``cross_k``/``cross_v``: (L, rows, N, D), each layer's encoder keys and
+      values, made once;
+    * ``cross_bias``: (rows, 1, 1, N); ``key_mask``: (rows, P + S), the
+      prompt's mask padded with zeros."""
+
+    self_k: torch.Tensor
+    self_v: torch.Tensor
+    cross_k: torch.Tensor
+    cross_v: torch.Tensor
+    cross_bias: torch.Tensor
+    key_mask: torch.Tensor
+
+    def reorder(self, rows: torch.Tensor, length: int) -> "BertCache":
+        """Beam search's gather of every row (the cross K/V and the masks
+        are equal over a sample's beams; the self K/V differ)."""
+        self.self_k = self.self_k.index_select(1, rows)
+        self.self_v = self.self_v.index_select(1, rows)
+        return self
+
+
+def bert_init_cache(dec, prompt_ids: torch.Tensor, prompt_mask: torch.Tensor,
+                    enc: torch.Tensor, max_new_tokens: int) -> BertCache:
+    """Prefill over ``prompt_ids`` (the prompt without its last token, which
+    the loop feeds first): every layer's self K/V from its input, and its
+    cross K/V from the encoder states."""
+    bert = dec.bert
+    x = bert.embed(prompt_ids)
+    cache = bert_cache_biases(dec.cfg, prompt_mask, enc)
+    ks, vs, cks, cvs = [], [], [], []
+    pad = (0, 0, 0, max_new_tokens)
+    for layer in bert.encoder.layer:
+        sa, ca = layer.attention.self, layer.crossattention.self
+        ks.append(F.pad(F.linear(x, sa.key.weight, sa.key.bias), pad))
+        vs.append(F.pad(F.linear(x, sa.value.weight, sa.value.bias), pad))
+        kv = enc.to(x.dtype)
+        cks.append(F.linear(kv, ca.key.weight, ca.key.bias))
+        cvs.append(F.linear(kv, ca.value.weight, ca.value.bias))
+        x, _ = layer(x, cache)
+    key_mask = F.pad(prompt_mask.to(torch.long), (0, max_new_tokens))
+    return BertCache(torch.stack(ks), torch.stack(vs), torch.stack(cks), torch.stack(cvs),
+                     cache[1], key_mask)
+
+
+def make_bert_step_fn(dec, prefix_len: int, max_new_tokens: int) -> StepFn:
+    """One-token decode step (bert.py:make_bert_step_fn): the token at step
+    ``pos`` sits at position and slot ``prefix_len + pos``; post-LN layers
+    with self-attention over the valid slots and cross-attention to the
+    image, then the LM head's float32 logits. Attention runs over every slot
+    with a -1e9 bias on the empty ones, as the JAX step does."""
+    cfg = dec.cfg
+    emb = dec.bert.embeddings
+    slots = torch.arange(prefix_len + max_new_tokens, device=emb.word_embeddings.weight.device)
+
+    def step_fn(tok: torch.Tensor, pos: int, cache: BertCache):
+        write = prefix_len + pos
+        w = emb.word_embeddings.weight
+        x = w[tok][:, None, :] + emb.position_embeddings.weight[write][None, None].to(w.dtype)
+        x = layer_norm(x, emb.LayerNorm.weight, emb.LayerNorm.bias, cfg.ln_eps)
+        valid = (cache.key_mask > 0) | ((slots >= prefix_len) & (slots <= write))[None]
+        self_bias = torch.where(valid, 0.0, -1e9)[:, None, None, :]
+        for i, layer in enumerate(dec.bert.encoder.layer):
+            att = layer.attention
+            sa = att.self
+            cache.self_k[i, :, write] = F.linear(x[:, 0], sa.key.weight, sa.key.bias)
+            cache.self_v[i, :, write] = F.linear(x[:, 0], sa.value.weight, sa.value.bias)
+            o = attention(F.linear(x, sa.query.weight, sa.query.bias), cache.self_k[i],
+                          cache.self_v[i], cfg.num_heads, bias=self_bias)
+            o = F.linear(o, att.output.dense.weight, att.output.dense.bias)
+            ln = att.output.LayerNorm
+            x = layer_norm(o + x, ln.weight, ln.bias, cfg.ln_eps)
+            ca = layer.crossattention
+            o = attention(F.linear(x, ca.self.query.weight, ca.self.query.bias),
+                          cache.cross_k[i], cache.cross_v[i], cfg.num_heads,
+                          bias=cache.cross_bias)
+            o = F.linear(o, ca.output.dense.weight, ca.output.dense.bias)
+            ln = ca.output.LayerNorm
+            x = layer_norm(o + x, ln.weight, ln.bias, cfg.ln_eps)
+            x = layer.ffn(x, None, None)
+        return dec.lm_logits(x)[:, 0], cache
+
+    return step_fn
+
+
+@torch.inference_mode()
+def bert_generate(dec, prompt_ids: torch.Tensor, enc: torch.Tensor, gen: GenerateConfig,
+                  use_beam: bool = True) -> torch.Tensor:
+    """(B, max_new_tokens) tokens from an unpadded prompt shared by the
+    batch, with cross-attention to ``enc`` (bert.py:generate_with_encoder):
+    the prompt's last token is fed first (``tok0``), and ``len_offset`` =
+    prompt length - 1 makes HF's ``cur_len`` count the prompt for the
+    min-length mask."""
+    b, t = prompt_ids.shape
+    nb = gen.num_beams if use_beam and gen.num_beams > 1 else 1
+    prefix, last = prompt_ids[:, :-1], prompt_ids[:, -1]
+    mask = torch.ones_like(prefix)
+    if nb > 1:
+        prefix, mask, last, enc = (expand_for_beams(v, nb) for v in (prefix, mask, last, enc))
+    cache = bert_init_cache(dec, prefix, mask, enc, gen.max_new_tokens)
+    step = make_bert_step_fn(dec, t - 1, gen.max_new_tokens)
+    run = beam_generate if nb > 1 else greedy_generate
+    return run(step, cache, b, gen, tok0=last, len_offset=t - 1,
+               prompt_tokens=expand_for_beams(prompt_ids, nb), device=prompt_ids.device)

@@ -4,7 +4,7 @@
 A model family supplies its prunable ``stacks`` (how to build a stack's
 inputs, how to run one block with optional inline statistics, where its
 blocks live), a per-sample calibration ``loss_fn`` and, optionally, suffix
-plans for the zeroth-order stage.
+or loss plans for the zeroth-order stage.
 """
 
 from __future__ import annotations
@@ -38,13 +38,33 @@ class StackSpec:
 
 
 @dataclass
+class LossPlan:
+    """A (loss_fn, data) pair for the MeZO targets it ``match``es (port of
+    ``LossPlan``, adapter.py:72-85): when a perturbation can only reach a
+    suffix of the network, the frozen prefix's activations are computed once,
+    with the unperturbed weights, into ``data``, and ``loss_fn(model, data)``
+    starts from them; BLIP-1's text-tower targets reuse the image embeddings
+    this way. The serial cycle scores a matched target with the plan's loss
+    on the plan's data, microbatch by microbatch; the lane ensemble never
+    takes a LossPlan (it needs a suffix plan)."""
+
+    match: Callable[[str], bool]
+    loss_fn: Callable[[nn.Module, Any], Any]
+    data: Any
+    static_keys: Tuple[str, ...] = ()
+
+    def prepare(self, model: nn.Module, name: str) -> Any:
+        return self.data
+
+
+@dataclass
 class ModelAdapter:
     name: str
     model: nn.Module
     # (model, batch) -> (B,) per-sample calibration losses
     loss_fn: Callable[[nn.Module, Any], Any]
     stacks: List[StackSpec]
-    # (model, batch) -> list of suffix plans for the MeZO stage
+    # (model, batch) -> the MeZO stage's plans (SuffixPlan or LossPlan)
     build_mezo_plans: Optional[Callable[..., list]] = None
     # submodel prefix per stack, for ``model`` granularity and
     # prune_per_model, e.g. {"visual_encoder.blocks": "visual_encoder"}

@@ -147,7 +147,9 @@ def _target_grads(loss_fn: LossFn, model: nn.Module, data: Any,
     wanted = {t.name for t in targets}
     rest = list(targets)
     for plan in plans or ():
-        if not any(plan.match(t.name) for t in rest):
+        # a LossPlan has no stack to stream (first_order.py:263-266)
+        if getattr(plan, "stack", None) is None or not any(
+                plan.match(t.name) for t in rest):
             continue
         stack = plan.stack
         for i, ws, grads in _streamed_block_grads(model, data, num_microbatches, plan):

@@ -20,8 +20,9 @@ Two ways to evaluate it, the same estimator with the same z:
 ``ensemble=None`` (the default) lets each plan choose (``SuffixPlan.lanes``:
 BLIP-2's stacks take the ensemble, LLaMA's the serial cycle); True sends
 every planned target to the ensemble, as the JAX package's default does;
-False sends every target the serial way. Targets no plan covers always go
-the serial way.
+False sends every target the serial way. Targets no plan covers, and
+those a ``LossPlan`` covers (scored by the plan's loss on the plan's data),
+always go the serial way.
 
 Noise modes: ``per_batch`` (default, the reference's sampling) draws a fresh
 z per (target, microbatch, draw); ``shared`` draws one z per (target, draw)
@@ -151,8 +152,8 @@ def mezo_leaf_scores(
         per target in ``shared`` mode.
       seed: integer seed of the kernel's noise streams.
       noise_mode: ``per_batch`` or ``shared`` (module docstring).
-      loss_plans: suffix plans; the first whose ``match`` hits a target
-        supplies its (loss_fn, data).
+      loss_plans: suffix or loss plans; the first whose ``match`` hits a
+        target supplies its (loss_fn, data).
       noise: test hook returning z for (target index, microbatch or None in
         ``shared`` mode, draw, shape), used in place of the kernel's stream.
       ensemble: True scores the targets a plan covers by the lane ensemble

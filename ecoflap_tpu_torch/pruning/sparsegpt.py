@@ -23,7 +23,11 @@ column. ``sparsegpt_prune_weight_group`` sweeps K same-shape weights in one
 batched pass (``torch.bmm``): lanes never mix, so a lane whose Hessian fails
 leaves the others exact.
 
-Plain PyTorch (the JAX module is XLA only, no Pallas kernel). ``times``, when
+Plain PyTorch (the JAX module is XLA only, no Pallas kernel). On the card a
+call with at least ``GRAPH_MIN_BLOCKS`` full column blocks and no n:m
+refresh captures the in-block sweep once as a CUDA graph and replays it per
+block: the same kernels on the same values, so the same bits, without the
+host's six launches a column (host-bound otherwise). ``times``, when
 given, receives the seconds spent in ``prepare_hinv`` and in the column sweep
 (after a device synchronise), which ``chip_smoke.py`` reports.
 """
@@ -39,6 +43,9 @@ from ecoflap_tpu_torch.core.device import synchronize
 from ecoflap_tpu_torch.pruning.wanda import floor_count
 
 Times = Optional[Dict[str, float]]
+# the fewest full-width column blocks for which one call graphs its sweep
+# (the capture costs about two eager block sweeps)
+GRAPH_MIN_BLOCKS = 3
 
 
 def accumulate_hessian(h: torch.Tensor, nsamples: float,
@@ -174,6 +181,33 @@ def _sweep_block(w1: torch.Tensor, hinv1: torch.Tensor, mask1: torch.Tensor,
     return q1, err1
 
 
+def _graphed_sweep(k: int, rows: int, bsz: int, dtype: torch.dtype,
+                   device: torch.device):
+    """``_sweep_block`` without n:m refresh on (k, rows, bsz) blocks as one
+    CUDA graph. Returns sweep(w1, hinv1, mask1) -> (Q1, Err1); Q1 and Err1
+    are the graph's own buffers, overwritten by the next call."""
+    w1 = torch.zeros((k, rows, bsz), dtype=dtype, device=device)
+    hinv1 = torch.eye(bsz, dtype=dtype, device=device).expand(k, bsz, bsz).contiguous()
+    mask1 = torch.zeros((k, rows, bsz), dtype=torch.bool, device=device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):  # a warm-up run before the capture
+        _sweep_block(w1.clone(), hinv1, mask1, 0, 0)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        q1, err1 = _sweep_block(w1, hinv1, mask1, 0, 0)
+
+    def sweep(w, hinv, mask):
+        w1.copy_(w)
+        hinv1.copy_(hinv)
+        mask1.copy_(mask)
+        graph.replay()
+        return q1, err1
+
+    return sweep
+
+
 def _add_time(times: Times, key: str, t0: float, ref: torch.Tensor) -> float:
     if times is None:
         return t0
@@ -206,6 +240,9 @@ def sparsegpt_prune_weight_group(
     hinv, dead = prepare_hinv(hs, percdamp)
     w.masked_fill_(dead[:, None, :], 0.0)
     t0 = _add_time(times, "prepare_hinv_s", t0, w)
+    graphed = None
+    if w.is_cuda and prune_n == 0 and cols // blocksize >= GRAPH_MIN_BLOCKS:
+        graphed = _graphed_sweep(k, rows, blocksize, w.dtype, w.device)
     for i1 in range(0, cols, blocksize):
         i2 = min(i1 + blocksize, cols)
         w1 = w[..., i1:i2].clone()
@@ -216,7 +253,10 @@ def sparsegpt_prune_weight_group(
                                  for j in range(k)])
         else:
             mask1 = torch.zeros(w1.shape, dtype=torch.bool, device=w.device)
-        q1, err1 = _sweep_block(w1, hinv1, mask1, prune_n, prune_m)
+        if graphed is not None and i2 - i1 == blocksize:
+            q1, err1 = graphed(w1, hinv1, mask1)
+        else:
+            q1, err1 = _sweep_block(w1, hinv1, mask1, prune_n, prune_m)
         w[..., i1:i2] = q1
         if i2 < cols:
             w[..., i2:] -= torch.bmm(err1, hinv[:, i1:i2, i2:])

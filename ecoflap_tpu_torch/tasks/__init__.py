@@ -1,10 +1,10 @@
 """Evaluation tasks (reference lavis/tasks/__init__.py ``setup_task``): VQA
-and GQA, captioning, the language-model tasks, MMLU and (zero-shot)
-classification. Retrieval waits for its model family."""
+and GQA, captioning, the language-model tasks, MMLU, (zero-shot)
+classification and retrieval."""
 
 from ecoflap_tpu_torch.core.registry import registry
 from ecoflap_tpu_torch.tasks import (  # noqa: F401 (they register)
-    captioning, classification, lm, mmlu, vqa)
+    captioning, classification, lm, mmlu, retrieval, vqa)
 
 
 def setup_task(name: str, *args, **kwargs):

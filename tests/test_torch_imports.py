@@ -77,7 +77,8 @@ def test_every_package_module_is_scanned():
     for name in ("ops.perturb", "cli.prune", "cli.evaluate", "ops.attention",
                  "models.llama", "models.clip", "models.t5", "core.config",
                  "core.project", "data.coop", "data.prompts", "tasks.mmlu",
-                 "tasks.classification"):
+                 "tasks.classification", "models.bert", "models.blip1",
+                 "runners.finetune", "tasks.retrieval", "cli.upop"):
         assert f"ecoflap_tpu_torch.{name}" in mods, name
 
 
@@ -117,3 +118,29 @@ def test_llama_cli_without_cpu_request_raises_when_there_is_no_card(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--model", "llama", "--model_scale", "tiny",
               "--output_dir", str(tmp_path)])
+
+
+def test_blip1_build_model_without_cpu_request_raises_when_there_is_no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-card refusal is untestable")
+    from ecoflap_tpu_torch.models import blip1
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        blip1.build_model(blip1.tiny_config(), "blip_caption")
+
+
+@pytest.mark.parametrize("argv", [
+    ["ecoflap_tpu_torch.cli.upop", "--head", "nlvr"],
+    ["ecoflap_tpu_torch.cli.evaluate", "--model", "blip1", "--task", "retrieval"],
+], ids=["upop", "evaluate_blip1"])
+def test_new_entry_points_default_to_the_card(argv):
+    """The UPop launcher and the blip1 evaluate branches run on ``cuda``
+    unless ``--device cpu`` asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-card refusal is untestable")
+    import importlib
+
+    main = importlib.import_module(argv[0]).main
+    assert main.__module__ == argv[0]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(argv[1:] + ["--model_scale", "tiny"])

@@ -18,6 +18,7 @@ from ecoflap_tpu_torch.tasks import captioning as tcap
 from ecoflap_tpu_torch.tasks import classification as tcls
 from ecoflap_tpu_torch.tasks import lm as tlm
 from ecoflap_tpu_torch.tasks import mmlu as tmmlu
+from ecoflap_tpu_torch.tasks import retrieval as tret
 from ecoflap_tpu_torch.tasks import setup_task
 from ecoflap_tpu_torch.tasks import vqa as tvqa
 
@@ -123,10 +124,12 @@ def test_setup_task_names_the_jax_registry_names():
                       ("wikitext_ppl", tlm.PerplexityTask),
                       ("prefix_lm_loss", tlm.PrefixLMLossTask),
                       ("mmlu", tmmlu.MMLUTask),
-                      ("multimodal_classification", tcls.ClassificationTask)):
+                      ("multimodal_classification", tcls.ClassificationTask),
+                      ("retrieval", tret.RetrievalTask)):
         assert type(setup_task(name)) is cls
-    with pytest.raises(KeyError, match="mmlu"):  # the error lists the known names
-        setup_task("retrieval")
+    # every JAX task name is registered now; the error lists the known names
+    with pytest.raises(KeyError, match="mmlu"):
+        setup_task("video_retrieval")
 
 
 def test_runner_evaluate_logs_each_split(tmp_path):

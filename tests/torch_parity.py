@@ -141,3 +141,33 @@ def first_order_sums(model_name, num_mb=2):
         out["port", "plain", method] = tsums(
             tad.loss_fn, tad.model, tb, num_mb, tad.targets(), method)
     return tad, out
+
+
+BLIP1_JAX = {  # kind -> (init_params name, per-sample loss name, adapter name)
+    "blip_caption": ("init_params", "per_sample_loss", "make_adapter"),
+    "blip_vqa": ("init_vqa_params", "vqa_loss", "make_vqa_adapter"),
+    "blip_nlvr": ("init_nlvr_params", "nlvr_loss", "make_nlvr_adapter"),
+    "blip_retrieval": ("init_retrieval_params", "retrieval_per_sample_loss",
+                       "make_retrieval_adapter"),
+}
+BLIP1_HEADS = {"caption": "blip_caption", "vqa": "blip_vqa", "nlvr": "blip_nlvr",
+               "retrieval": "blip_retrieval"}
+
+
+def blip1_pair(kind, seed=0, kernel_scale=1.0):
+    """Tiny BLIP-1 of one head in both packages, float32: (cfg, JAX params,
+    port model with the same weights). ``kernel_scale`` multiplies every
+    linear kernel of the init (std 0.02), so that a MeZO perturbation moves
+    the loss by many float32 ulps."""
+    from ecoflap_tpu.models import blip1 as jblip1
+    from ecoflap_tpu_torch.models import blip1 as tblip1
+
+    cfg = jblip1.tiny_config()
+    params = getattr(jblip1, BLIP1_JAX[kind][0])(cfg, jax.random.PRNGKey(seed))
+    if kernel_scale != 1.0:
+        params = jax.tree_util.tree_map_with_path(
+            lambda path, a: a * kernel_scale
+            if getattr(path[-1], "key", None) == "kernel" else a, params)
+    model = tblip1.build_model(tblip1.tiny_config(), kind, device="cpu", seed=None)
+    load_jax_params(model, flatten_named(params))
+    return cfg, params, model
