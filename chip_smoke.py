@@ -118,7 +118,32 @@ Phases, in order; any failure raises and the exit code is non-zero:
      launches),
      then 2 masked AdamW steps (every pruned entry stays 0) and the pruned
      ``.pth``, read back tensor by tensor; then the evaluate CLI's blip1
-     captioning from that ``.pth`` (2 batches of 8, beam 3, 20 tokens).
+     captioning from that ``.pth`` (2 batches of 8, beam 3, 20 tokens);
+ 19. the DeiT-B path: scripts/llama/image_classifiers.sh's flags (128
+     samples at batch 16, deit_wanda_pruner, 12-0.5-1.0-1.0) through the
+     prune CLI from a timm-named ``--ckpt`` of the seed's weights with the
+     head scaled 16x (see ``DEIT_HEAD_SCALE``) (Wanda, no kernel launch),
+     then again with the ECoFLaP block MeZO stage (cap 0.6,
+     32 coarse samples: 48 targets x 2 microbatches x 3 = 288 kernel-1
+     launches; at least half the scores non-zero, in at least 4 values)
+     and ``--save_pruned_model``; the ``.pth`` read back tensor by tensor,
+     then top-1 on random images from it through the evaluate
+     CLI;
+ 20. the ConvNeXt-T path: the same with convnext_wanda_pruner and
+     0-0.5-1.0-1.0, from an FB-named ``--ckpt`` whose layer scales are drawn
+     from U(0.5, 1.5) (the init's 1e-6 leaves every block a bf16 rounding of
+     its residual): 36 targets, 216 kernel-1 launches;
+ 21. BLIP-2 OPT-2.7B captioning (EVA ViT-g 39 x 1408, the Q-Former,
+     OPT-2.7B 32 x 2560; random bf16 weights, seed 42) through the evaluate
+     CLI: 2 batches of 8 random images, the prompt "a photo of", beam 5, 10
+     new tokens, min length 8 (caption_coco_opt2.7b_eval.yaml); every id in
+     the vocabulary, pad after EOS, every caption at least 8 tokens with its
+     prompt, finite metrics; then batch 0's decode loop alone (the CLI's
+     tokens again) against its weight-read bound, with its launches and
+     device time a step (profiler), and the peak;
+ 22. the stage-1 Q-Former's retrieval through the evaluate CLI at tiny on
+     the card and on the CPU from one model: equal recall metrics; then
+     ``--model_scale full``, which ends with the JAX CLI's message.
 Phase 9 also holds tiny BLIP-2's generated tokens (f32, greedy and beam 5
 at the VQA and captioning points) on the card against the CPU; tiny BLIP-2
 in bf16 with rows that finish: the decode step's float32 logits on the card
@@ -128,13 +153,16 @@ f32, tiny standalone T5's zeroth-order and SparseGPT masks (SparseGPT on
 random ids, then on the CLI's own batch: the flip share read, encoder block
 0 from one Hessian in f32 and f64), tiny CLIP's and
 EVA-CLIP's contrastive losses and zero-shot logits, and tiny T5's MMLU
-first-token logits, card against CPU; and tiny BLIP-1's four heads (f32,
+first-token logits, card against CPU; tiny BLIP-1's four heads (f32,
 kernels 10x the init): the per-sample loss and the UPop launcher's
 sparsity dict and masks from one ``--ckpt`` (kernel 1 on the card), card
-against CPU. Phase 2 also holds the in-place kernel at CLIP ViT-B/16's
-eight weight shapes (BLIP-1's are among them). Kernel
-launch counts are set to 0 just before each of phases 4 to 8 and 10 to 18
-(phase 18: the prune, then the captioning eval) and read just after it. The line before the last holds the card's
+against CPU; and tiny DeiT's and ConvNeXt's logits and CE losses, tiny
+BLIP-2 OPT's greedy and beam-5 tokens and tiny Q-Former retrieval's ITC
+similarities and ITM logits, card against CPU (f32). Phase 2 also holds the in-place kernel at CLIP ViT-B/16's
+eight weight shapes (BLIP-1's and DeiT-B's are among them) and at
+ConvNeXt-T's. Kernel
+launch counts are set to 0 just before each of phases 4 to 8 and 10 to 22
+(phases 18-20: each prune, then the eval) and read just after it. The line before the last holds the card's
 ``name, power.limit``; the last is ``{"ok": true, "device": {...}}``.
 """
 
@@ -177,11 +205,18 @@ LLAMA_SHAPES = [(4096, 4096)] * 4 + [(11008, 4096)] * 2 + [(4096, 11008)]
 # in_proj, out_proj, c_fc and c_proj at width 768, the text tower's at 512
 CLIP_SHAPES = [(2304, 768), (768, 768), (3072, 768), (768, 3072),
                (1536, 512), (512, 512), (2048, 512), (512, 2048)]
+# ConvNeXt-T's target shapes (out, in): pwconv1 and pwconv2 of each block,
+# depths 3-3-9-3 at widths 96-192-384-768 (DeiT-B's are CLIP ViT-B/16's
+# visual four)
+CONVNEXT_DEPTHS, CONVNEXT_DIMS = (3, 3, 9, 3), (96, 192, 384, 768)
+CONVNEXT_SHAPES = [s for d, c in zip(CONVNEXT_DEPTHS, CONVNEXT_DIMS)
+                   for s in [(4 * c, c), (c, 4 * c)] * d]
 # the in-place kernel runs the serial cycles of phases 5 (LLaMA-7B), 14
 # (FlanT5-XL, BLIP-2's T5 shapes), 16 (EVA-CLIP-g, BLIP-2's ViT shapes), 17
-# (CLIP ViT-B/16) and 18 (BLIP-1: CLIP ViT-B/16's visual shapes), and
-# BLIP-2's that --mezo_ensemble 0 selects
-IN_PLACE_SHAPES = XL_SHAPES + sorted(set(LLAMA_SHAPES)) + CLIP_SHAPES + [RAGGED]
+# (CLIP ViT-B/16), 18 (BLIP-1: CLIP ViT-B/16's visual shapes), 19 (DeiT-B:
+# the same) and 20 (ConvNeXt-T), and BLIP-2's that --mezo_ensemble 0 selects
+IN_PLACE_SHAPES = (XL_SHAPES + sorted(set(LLAMA_SHAPES)) + CLIP_SHAPES
+                   + sorted(set(CONVNEXT_SHAPES) - set(CLIP_SHAPES)) + [RAGGED])
 LLAMA_LINEARS = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
                  "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj", "mlp.down_proj")
 SEED = 42
@@ -424,6 +459,55 @@ BLIP1_SHAPES = (CLIP_SHAPES[:4] * 12
 BLIP1_TINY_KERNEL_SCALE = 10.0
 BLIP1_TINY_EPS = 0.2
 BLIP1_TINY_SAMPLES = 8
+# phases 19-20, scripts/llama/image_classifiers.sh's flags (128 samples at
+# batch 16, spec 12- or 0-0.5-1.0-1.0), then the ECoFLaP block MeZO stage on
+# 32 of them (2 coarse microbatches), cap 0.6
+CLS_SAMPLES = 128
+CLS_BATCH = 16
+CLS_FIRST_STAGE = 32
+CLS_NAMES = {"deit": "DeiT-B", "convnext": "ConvNeXt-T"}
+CLS_SPECS = {"deit": "12-0.5-1.0-1.0", "convnext": "0-0.5-1.0-1.0"}
+CLS_ECOFLAP = ["--sparsity_ratio_granularity", "block", "--score_method",
+               "MEZO-GradOnly_sum", "--max_sparsity_per_layer", "0.6",
+               "--num_data_first_stage", str(CLS_FIRST_STAGE)]
+# kernel-1 launches: 3 per target and coarse microbatch; the targets are
+# attn.qkv, attn.proj, mlp.fc1 and mlp.fc2 of DeiT-B's 12 blocks
+# (ecoflap_tpu/models/eva_vit.py:44) and pwconv1 and pwconv2 of ConvNeXt-T's
+# 18 blocks
+CLS_TARGETS = {"deit": 12 * 4, "convnext": 2 * sum(CONVNEXT_DEPTHS)}
+# the bf16 weights (DeiT-B 0.17 GB, ConvNeXt-T 0.06 GB), 128 calibration
+# images and a stack's inputs, with a few GiB to spare
+CLS_PEAK_GIB = 8.0
+# ConvNeXt's layer scale is 1e-6 at the init, which leaves every block's
+# output a rounding of its residual in bf16: the FB-named --ckpt draws it
+# from U(0.5, 1.5) instead, so each block weighs in the scores and masks
+CONVNEXT_GAMMA = (0.5, 1.5)
+# DeiT's calibration CE is bf16, as the JAX head's (ROADMAP.md section 3),
+# and the coarse stage takes the bf16 mean of a microbatch's losses: at the
+# init (logits of order 0.5, a mean near ln 1000 with an ulp of 0.031) one
+# perturbed linear moves it by less than an ulp, and nearly every MeZO score
+# is 0. The timm-named --ckpt scales the head 16x, so the mean moves by some
+# ulps (the scores are multiples of ulp / 2 eps). The random labels keep
+# the mean above ln 1000 at any scale
+DEIT_HEAD_SCALE = 16.0
+# a coarse stage that scores: at least half the targets non-zero, in at
+# least 4 distinct values (a stage that scores nothing, or one constant,
+# fails)
+CLS_MIN_NONZERO = 0.5
+CLS_MIN_DISTINCT = 4
+# phase 21, caption_coco_opt2.7b_eval.yaml's decode point through the
+# evaluate CLI: 2 batches of 8, beam 5, the CLI's 10 new tokens and length
+# penalty, min length 8 counting the prompt's 3 tokens ("a photo of")
+OPT_EVAL_BATCHES = 2
+OPT_POINT = dict(max_new_tokens=10, num_beams=5, min_length=8, length_penalty=-1.0)
+OPT_PROMPT_TOKENS = 3
+# BLIP-2 OPT-2.7B's bf16 weights are 7.7 GB; its caches at 40 rows are MBs
+OPT_PEAK_GIB = 16.0
+# phase 9's tiny BLIP-2 OPT generates (kernels 5x, the final LayerNorm's bias
+# and the EOS row of the tied embedding along one random direction), as
+# tests/test_torch_opt.py holds it against the JAX package
+OPT_TINY_KERNEL_SCALE = 5.0
+OPT_TINY_EOS_BOOST = 0.03
 
 
 def log(*a):
@@ -815,7 +899,7 @@ def serial_cycle_paths():
     """{path: ((out, in) of each target, coarse microbatches)} of the paths
     that score by the serial in-place cycle: LLaMA-7B (phase 5), FlanT5-XL
     (phase 14), EVA-CLIP-g's visual tower (phase 16), CLIP ViT-B/16 (phase
-    17) and BLIP-1 (phase 18)."""
+    17), BLIP-1 (phase 18), DeiT-B (phase 19) and ConvNeXt-T (phase 20)."""
     t5_xl = xl_target_shapes()[4 * 39:]
     eva_g = [(4224, 1408), (1408, 1408), (6144, 1408), (1408, 6144)] * 40
     clip_b16 = CLIP_SHAPES[:4] * 12 + CLIP_SHAPES[4:] * 12
@@ -823,7 +907,9 @@ def serial_cycle_paths():
             "t5": (t5_xl, T5_FIRST_STAGE // BATCH_SIZE),
             "eva_clip": (eva_g, EVA_FIRST_STAGE // BATCH_SIZE),
             "clip": (clip_b16, CLIP_SAMPLES // CLIP_BATCH),
-            "blip1": (BLIP1_SHAPES, BLIP1_SAMPLES // BLIP1_MICROBATCH)}
+            "blip1": (BLIP1_SHAPES, BLIP1_SAMPLES // BLIP1_MICROBATCH),
+            "deit": (CLIP_SHAPES[:4] * 12, CLS_FIRST_STAGE // CLS_BATCH),
+            "convnext": (CONVNEXT_SHAPES, CLS_FIRST_STAGE // CLS_BATCH)}
 
 
 def perturb_launch_weights(paths=None):
@@ -2421,6 +2507,316 @@ def blip1_path(torch, kernels, out_dir):
     return counts, eval_counts, info
 
 
+def slice12_tiny_checks(torch):
+    """Phase 9's checks of the image classifiers, BLIP-2 OPT and the stage-1
+    Q-Former at tiny widths, float32, card against CPU from one model each
+    (module docstring); returns the readings."""
+    from ecoflap_tpu_torch.models import blip2_opt, blip2_qformer, classifiers
+    from ecoflap_tpu_torch.models.generation import GenerateConfig
+
+    def rel_l2(a, b):
+        a, b = a.detach().cpu().double(), b.detach().cpu().double()
+        return ((a - b).norm() / b.norm()).item()
+
+    out = {}
+    g = torch.Generator().manual_seed(7)
+    for kind in ("deit", "convnext"):
+        cpu = classifiers.build_model(classifiers.build(kind, "tiny"), device="cpu", seed=3)
+        if kind == "convnext":
+            with torch.no_grad():
+                for stage in cpu.stages:
+                    for blk in stage:
+                        blk.gamma.uniform_(*CONVNEXT_GAMMA, generator=g)
+        card = copy.deepcopy(cpu).to("cuda")
+        img = torch.randn(8, cpu.cfg.img_size, cpu.cfg.img_size, 3, generator=g)
+        label = torch.randint(0, classifiers.num_classes(cpu.cfg), (8,), generator=g)
+        got = {}
+        with torch.no_grad():
+            for dev, m in (("cuda", card), ("cpu", cpu)):
+                batch = {"image": img.to(dev), "label": label.to(dev)}
+                got[dev] = (m(batch["image"]), classifiers.make_adapter(m).loss_fn(m, batch))
+        out[f"{kind}_logits_rel_l2"] = rel_l2(got["cuda"][0], got["cpu"][0])
+        out[f"{kind}_loss_rel_l2"] = rel_l2(got["cuda"][1], got["cpu"][1])
+        assert max(out[f"{kind}_logits_rel_l2"], out[f"{kind}_loss_rel_l2"]) \
+            <= NEW_FAMILY_REL_L2, out
+    cpu = blip2_opt.build_model(blip2_opt.tiny_config(), device="cpu", seed=3)
+    with torch.no_grad():
+        for mod in cpu.modules():
+            if isinstance(mod, torch.nn.Linear):
+                mod.weight.mul_(OPT_TINY_KERNEL_SCALE)
+        cpu.visual_encoder.patch_embed.proj.weight.mul_(OPT_TINY_KERNEL_SCALE)
+        dec = cpu.opt_model.decoder
+        v = torch.randn(dec.final_layer_norm.bias.shape, generator=g)
+        dec.final_layer_norm.bias.copy_(0.5 * v)
+        dec.embed_tokens.weight[cpu.cfg.opt.eos_token_id] += OPT_TINY_EOS_BOOST * v
+    card = copy.deepcopy(cpu).to("cuda")
+    img = torch.randn(6, 16, 16, 3, generator=g)
+    prompt = torch.randint(3, cpu.cfg.opt.vocab_size, (1, OPT_PROMPT_TOKENS),
+                           generator=g).repeat(6, 1)
+    for name, beams in (("greedy", 1), ("beam5", 5)):
+        gen = GenerateConfig(max_new_tokens=12, num_beams=beams, min_length=8)
+        toks = {dev: m.generate(img.to(dev), prompt.to(dev), torch.ones_like(prompt).to(dev),
+                                gen).cpu()
+                for dev, m in (("cuda", card), ("cpu", cpu))}
+        assert torch.equal(toks["cuda"], toks["cpu"]), (name, toks)
+        out[f"blip2_opt_{name}_finished"] = sum(
+            cpu.cfg.opt.eos_token_id in r for r in toks["cpu"].tolist())
+        # rows that finish are what exercise min_length and pad after EOS
+        # (phase 21's full-width rows run to max_new_tokens)
+        assert out[f"blip2_opt_{name}_finished"] >= 1, (name, toks["cpu"])
+    cpu = blip2_qformer.build_model(blip2_qformer.tiny_config(), device="cpu", seed=3)
+    card = copy.deepcopy(cpu).to("cuda")
+    emb = torch.randn(6, 8, cpu.cfg.qformer.encoder_width, generator=g)
+    ids = torch.randint(3, cpu.cfg.vocab_size, (6, 8), generator=g)
+    mask = torch.ones_like(ids)
+    mask[1, 5:] = 0
+    got = {}
+    with torch.no_grad():
+        for dev, m in (("cuda", card), ("cpu", cpu)):
+            args = (emb.to(dev), ids.to(dev), mask.to(dev))
+            got[dev] = (m.itc_sim_matrix(*args), m.itm_score(*args))
+    out["qformer_sims_rel_l2"] = rel_l2(got["cuda"][0], got["cpu"][0])
+    out["qformer_itm_rel_l2"] = rel_l2(got["cuda"][1], got["cpu"][1])
+    assert max(out["qformer_sims_rel_l2"], out["qformer_itm_rel_l2"]) <= NEW_FAMILY_REL_L2, out
+    return out
+
+
+def classifier_path(torch, kernels, out_dir, read_flat_yaml, kind):
+    """Phase 19 (``deit``, DeiT-B) or 20 (``convnext``, ConvNeXt-T): a
+    reference-named ``.pth`` of the seed's weights (timm's names with the
+    head scaled by ``DEIT_HEAD_SCALE``, or FB's with layer scales from
+    U``CONVNEXT_GAMMA``), pruned through the prune
+    CLI with the launcher's flags (Wanda, uniform), then again with the
+    ECoFLaP block MeZO stage (kernel 1 counted) and ``--save_pruned_model``;
+    that ``.pth`` read back tensor by tensor, then classified on random
+    images through the evaluate CLI. Returns the readings and counts."""
+    from ecoflap_tpu_torch.cli import evaluate as ev
+    from ecoflap_tpu_torch.cli import prune as cli
+    from ecoflap_tpu_torch.models import classifiers
+    from ecoflap_tpu_torch.utils.checkpoint import (
+        export_state_dict,
+        load_torch_checkpoint,
+        save_torch_checkpoint,
+    )
+
+    pth_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{kind}_")
+    out = {}
+    try:
+        model = classifiers.build_model(classifiers.build(kind, "full"), device="cuda",
+                                        seed=SEED)
+        with torch.no_grad():
+            if kind == "convnext":
+                g = torch.Generator(device="cuda").manual_seed(SEED)
+                for stage in model.stages:
+                    for blk in stage:
+                        blk.gamma.uniform_(*CONVNEXT_GAMMA, generator=g)
+            else:
+                model.head.weight.mul_(DEIT_HEAD_SCALE)
+        ckpt = os.path.join(pth_dir, f"{kind}_seed{SEED}.pth")
+        save_torch_checkpoint(export_state_dict(model), ckpt)
+        del model
+        argv = ["--model", kind, "--model_scale", "full", "--ckpt", ckpt,
+                "--pruning_method", f"{kind}_wanda_pruner", "--prune_spec", CLS_SPECS[kind],
+                "--num_samples", str(CLS_SAMPLES), "--batch_size", str(CLS_BATCH),
+                "--seed", str(SEED)]
+        torch.cuda.reset_peak_memory_stats()
+        res, wall, counts = run_path(cli, kernels, argv + ["--output_dir", pth_dir])
+        log_path(f"{CLS_NAMES[kind]} Wanda", res, wall, counts)
+        assert not any(counts.values()), counts
+        assert abs(res["prunable_sparsity"] - 0.5) <= 0.01, res["prunable_sparsity"]
+        out["wanda"] = {"wall": wall, "prune": res["wall_clock_s"],
+                        "sparsity": res["prunable_sparsity"]}
+        out["wanda_counts"] = counts
+        del res
+        n = CLS_TARGETS[kind]
+        res, wall, counts = run_path(cli, kernels, argv + CLS_ECOFLAP + [
+            "--save_pruned_model", "--output_dir", pth_dir])
+        log_path(f"{CLS_NAMES[kind]} ECoFLaP", res, wall, counts)
+        assert counts == {"perturb_inplace": 3 * n * (CLS_FIRST_STAGE // CLS_BATCH),
+                          "perturb": 0, "flash_attention": 0, "flash_attention_bwd": 0}, counts
+        scores = list(res["leaf_scores"].values())
+        assert len(scores) == n and all(math.isfinite(v) and v >= 0 for v in scores), scores
+        nonzero = [v for v in scores if v > 0]
+        assert (len(nonzero) >= CLS_MIN_NONZERO * n
+                and len(set(nonzero)) >= CLS_MIN_DISTINCT), sorted(scores)
+        sd = read_flat_yaml(res["sparsity_dict"])
+        assert set(sd) == set(res["leaf_scores"]), "sparsity dict keys"
+        assert max(sd.values()) <= 0.6 + 1e-9, max(sd.values())
+        assert abs(res["prunable_sparsity"] - 0.5) <= 0.01, res["prunable_sparsity"]
+        t0 = time.time()
+        state = load_torch_checkpoint(res["pth"])
+        own = res["model"].state_dict()
+        assert set(state) == set(own), sorted(set(state) ^ set(own))[:5]
+        bad = [k for k in own if not torch.equal(state[k], own[k].float().cpu())]
+        assert not bad, bad[:3]
+        out["ecoflap"] = {
+            "wall": wall, "prune": res["wall_clock_s"], "peak": res["peak_gib"],
+            "scores": (min(scores), max(scores)), "distinct_nonzero": len(set(nonzero)),
+            "zero_scores": sum(v == 0 for v in scores), "max_ratio": max(sd.values()),
+            "sparsity": res["prunable_sparsity"], "pth_bytes": os.path.getsize(res["pth"]),
+            "pth_write_s": res["pth_write_s"], "pth_read_s": time.time() - t0}
+        out["ecoflap_counts"] = counts
+        pth = res["pth"]
+        del res, state, own
+        gc.collect()
+        reset_counts(kernels)
+        t0 = time.time()
+        metrics = ev.main(["--model", kind, "--task", "classification", "--model_scale", "full",
+                           "--synthetic", "--checkpoint", pth, "--batch_size", str(CLS_BATCH),
+                           "--output_dir", pth_dir])
+        out["eval"] = {"wall": time.time() - t0, "agg": metrics["agg_metrics"]}
+        out["eval_counts"] = read_counts(kernels)
+        assert not any(out["eval_counts"].values()), out["eval_counts"]
+        assert 0.0 <= metrics["agg_metrics"] <= 100.0, metrics
+        out["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        assert out["peak"] <= CLS_PEAK_GIB, out["peak"]
+    finally:
+        shutil.rmtree(pth_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def opt_step_bytes(opt):
+    """Weight bytes one decode step reads: every decoder weight but the
+    position table (one row a step), the tied embedding once (the logits)."""
+    return sum(p.numel() * p.element_size() for name, p in opt.decoder.named_parameters()
+               if "embed_positions" not in name)
+
+
+def blip2_opt_path(torch, kernels, out_dir):
+    """Phase 21: the evaluate CLI's BLIP-2 OPT-2.7B captioning (random bf16
+    weights, seed 42) at ``OPT_POINT``, through a recording wrapper of
+    ``Blip2OPT.generate``; the tokens' validity and length; then batch 0's
+    decode loop alone, twice, timed against its weight-read bound, its
+    launches and device time under the profiler. Returns (counts,
+    readings)."""
+    from ecoflap_tpu_torch.cli import evaluate as ev
+    from ecoflap_tpu_torch.models import blip2_opt
+    from ecoflap_tpu_torch.models import generation as G
+    from ecoflap_tpu_torch.models import opt as opt_mod
+
+    calls = []
+    generate = blip2_opt.Blip2OPT.generate
+
+    def recording(self, images, prompt_ids, prompt_mask, gen=None, use_beam=True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = generate(self, images, prompt_ids, prompt_mask, gen, use_beam)
+        torch.cuda.synchronize()
+        calls.append((self, images, prompt_ids, prompt_mask, gen, toks,
+                      time.perf_counter() - t0))
+        return toks
+
+    torch.cuda.reset_peak_memory_stats()
+    blip2_opt.Blip2OPT.generate = recording
+    try:
+        reset_counts(kernels)
+        t0 = time.time()
+        metrics = ev.main(["--model", "blip2_opt", "--task", "captioning", "--model_scale",
+                           "full", "--synthetic", "--seed", str(SEED), "--batch_size",
+                           str(BATCH_SIZE), "--eval_batches", str(OPT_EVAL_BATCHES),
+                           "--num_beams", str(OPT_POINT["num_beams"]), "--output_dir", out_dir])
+        o = {"cli_wall": time.time() - t0}
+        counts = read_counts(kernels)
+    finally:
+        blip2_opt.Blip2OPT.generate = generate
+    assert not any(counts.values()), counts
+    assert len(calls) == OPT_EVAL_BATCHES, len(calls)
+    for k in ("Bleu_4", "ROUGE_L", "CIDEr", "agg_metrics"):
+        assert metrics[k] is not None and math.isfinite(metrics[k]), (k, metrics)
+    o["cider"] = metrics["CIDEr"]
+    model, images, ids, mask, gen, toks0, _ = calls[0]
+    cfg = model.cfg.opt
+    lengths, finished = [], 0
+    for *_, toks, _ in calls:
+        assert toks.shape == (BATCH_SIZE, OPT_POINT["max_new_tokens"]), toks.shape
+        assert bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "an id outside the vocab"
+        for row in toks.cpu().tolist():
+            n = row.index(cfg.eos_token_id) if cfg.eos_token_id in row else len(row)
+            finished += n < len(row)
+            assert set(row[n + 1:]) <= {cfg.pad_token_id}, "not pad after EOS"
+            lengths.append(OPT_PROMPT_TOKENS + n)
+    # HF's min_length: the prompt and the tokens before EOS
+    assert min(lengths) >= OPT_POINT["min_length"], lengths
+    o.update(shortest=min(lengths), finished=finished,
+             generate_s=[c[-1] for c in calls])
+    opt = model.opt_model
+    with torch.inference_mode():
+        x, m = model.decoder_inputs(model.encode_image(images), ids, mask)
+        t = ids.shape[1]
+        nb = gen.num_beams
+        prefix, pmask, last, prompt = (G.expand_for_beams(v, nb) for v in (
+            x[:, :-1], m[:, :-1], ids[:, -1], ids))
+
+    def loop():
+        with torch.inference_mode():
+            cache = opt_mod.init_gen_cache(opt, prefix, pmask, gen.max_new_tokens)
+            step = opt_mod.make_opt_step_fn(opt, prefix.shape[1], t - 1, gen.max_new_tokens)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = G.beam_generate(step, cache, BATCH_SIZE, gen, tok0=last, len_offset=t - 1,
+                                  prompt_tokens=prompt, device=images.device)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+    first, _ = loop()
+    again, loop_s = loop()
+    assert torch.equal(first, again) and torch.equal(again, toks0), \
+        "the decode loop gives other tokens than the CLI's batch 0"
+    o["step_bytes"] = opt_step_bytes(opt)
+    o["bound_ms"] = o["step_bytes"] / HBM_BYTES_PER_S * 1e3
+    o["step_ms"] = loop_s / gen.max_new_tokens * 1e3
+    launches, busy_ms = profile_launches(torch, loop)
+    o["launches_per_step"] = launches / gen.max_new_tokens
+    o["busy_ms_per_step"] = None if busy_ms is None else busy_ms / gen.max_new_tokens
+    o["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert o["peak"] <= OPT_PEAK_GIB, o["peak"]
+    del calls, model, opt, x, prefix
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, o
+
+
+def qformer_path(torch, kernels, out_dir):
+    """Phase 22: the evaluate CLI's stage-1 Q-Former retrieval at tiny on
+    the card and on the CPU with one model (its seeded init drawn on the
+    CPU for both: the card's generator draws other numbers), the metrics
+    equal; then ``--model_scale full``, which ends with the JAX CLI's
+    message. Returns the readings."""
+    from ecoflap_tpu_torch.cli import evaluate as ev
+    from ecoflap_tpu_torch.models import blip2_qformer
+
+    build = blip2_qformer.build_model
+
+    def cpu_drawn(cfg, *, device=None, dtype=torch.float32, seed=0):
+        return build(cfg, device="cpu", dtype=dtype, seed=seed).to(device)
+
+    metrics = {}
+    blip2_qformer.build_model = cpu_drawn
+    try:
+        for dev in ("cuda", "cpu"):
+            reset_counts(kernels)
+            m = ev.main(["--model", "blip2_qformer", "--task", "retrieval", "--device", dev,
+                         "--seed", str(SEED), "--output_dir", out_dir])
+            m.pop("eval_time_s")
+            metrics[dev] = m
+            if dev == "cuda":
+                counts = read_counts(kernels)
+    finally:
+        blip2_qformer.build_model = build
+    assert metrics["cuda"] == metrics["cpu"], metrics
+    assert not any(counts.values()), counts
+    try:
+        ev.main(["--model", "blip2_qformer", "--task", "retrieval", "--model_scale", "full",
+                 "--output_dir", out_dir])
+        raise AssertionError("blip2_qformer retrieval ran at --model_scale full")
+    except SystemExit as e:
+        refusal = str(e)
+    assert "only --model_scale tiny is configured" in refusal, refusal
+    return {"metrics": metrics["cuda"], "refusal": refusal, "counts": counts}
+
+
 def write_c4_jsonl(out_dir):
     """Phase 5's ``--calib`` files, C4-style (a ``{"text": ...}`` object a
     line): documents of 100-300 words of one hash token each, room for
@@ -2655,7 +3051,8 @@ def main(argv=None) -> int:
     phase_ended(2)
     # -- 3. timing --------------------------------------------------------------
     timings = {}
-    for shape in sorted(set(XL_SHAPES + [RAGGED] + LLAMA_SHAPES + CLIP_SHAPES)):
+    for shape in sorted(set(XL_SHAPES + [RAGGED] + LLAMA_SHAPES + CLIP_SHAPES
+                            + CONVNEXT_SHAPES)):
         t = time_perturb(P, torch, shape)
         timings[shape] = t
         b, by = bound(t)
@@ -2681,7 +3078,7 @@ def main(argv=None) -> int:
             f"bound {pb:.4f} ms ({pby}) | share of bound "
             f"{pb / weighted(timings, w, 'ms'):.3f}")
     log(f"perturb_inplace launch-weighted over the serial cycles of phases 5, 14, 16, "
-        f"17 and 18 ({sum(weights['perturb_inplace'].values())} launches): kernel "
+        f"17, 18, 19 and 20 ({sum(weights['perturb_inplace'].values())} launches): kernel "
         f"{avg('ms'):.4f} ms "
         f"(through the wrapper {avg('wrapper_ms'):.4f} ms) | bound "
         f"{p_bound:.4f} ms ({p_by}, {PERTURB_OPS_PER_ELEMENT} operations an element) | "
@@ -2965,6 +3362,15 @@ def main(argv=None) -> int:
             f"{r['launches']} kernel-1 launches, sparsity {r['sparsity']:.4f}, both "
             f"launcher runs {r['wall']:.1f} s"
             for h, r in b1.items()))
+    s12 = slice12_tiny_checks(torch)
+    log(f"tiny DeiT / ConvNeXt (layer scales U{CONVNEXT_GAMMA}) card vs CPU, f32: logits rel "
+        f"L2 {s12['deit_logits_rel_l2']:.3e} / {s12['convnext_logits_rel_l2']:.3e}, CE loss "
+        f"{s12['deit_loss_rel_l2']:.3e} / {s12['convnext_loss_rel_l2']:.3e} (gates "
+        f"{NEW_FAMILY_REL_L2}) | tiny BLIP-2 OPT (kernels x{OPT_TINY_KERNEL_SCALE}, EOS "
+        f"+{OPT_TINY_EOS_BOOST}) tokens identical card vs CPU, greedy and beam 5 (rows "
+        f"finished of 6: {s12['blip2_opt_greedy_finished']}, {s12['blip2_opt_beam5_finished']})"
+        f" | tiny Q-Former retrieval: ITC sims rel L2 {s12['qformer_sims_rel_l2']:.3e}, ITM "
+        f"logits {s12['qformer_itm_rel_l2']:.3e} (gates {NEW_FAMILY_REL_L2})")
     cli_flips, block0 = nf["t5_sparsegpt_cli_batch"]
     log(f"tiny T5 t5_sparsegpt_pruner on the CLI's own batch, card vs CPU, f32: mask flip "
         f"share {cli_flips:.4e} (a reading); encoder block 0 from one H per linear: " + "; ".join(
@@ -3182,7 +3588,51 @@ def main(argv=None) -> int:
         f"included) | peak {b['eval_peak']:.2f} GiB | launches {blip1_eval_counts} | {smi}")
 
     phase_ended(18)
-    serial = (llama_counts, t5_counts, eva_counts, clip_counts, blip1_counts)
+    # -- 19-20. DeiT-B and ConvNeXt-T: prune, ECoFLaP, the .pth, classification
+    cls = {}
+    for n, kind in ((19, "deit"), (20, "convnext")):
+        t0 = time.time()
+        cls[kind] = classifier_path(torch, kernels, out_dir, read_flat_yaml, kind)
+        r = cls[kind]
+        log_new_path(f"{CLS_NAMES[kind]} ECoFLaP (scripts/llama/image_classifiers.sh + block "
+                     f"MeZO, {CLS_FIRST_STAGE} samples)", r["ecoflap_counts"], r["ecoflap"])
+        log(f"{CLS_NAMES[kind]} (phase {n}): {time.time() - t0:.1f} s in all | Wanda alone: prune "
+            f"{r['wanda']['prune']} s, sparsity {r['wanda']['sparsity']}, launches "
+            f"{r['wanda_counts']} | ECoFLaP: prune {r['ecoflap']['prune']} s, "
+            f"{r['ecoflap_counts']['perturb_inplace']} kernel-1 launches (3 x "
+            f"{CLS_TARGETS[kind]} targets x {CLS_FIRST_STAGE // CLS_BATCH} microbatches), "
+            f"{CLS_TARGETS[kind] - r['ecoflap']['zero_scores']} non-zero scores of "
+            f"{CLS_TARGETS[kind]} in {r['ecoflap']['distinct_nonzero']} values, from "
+            f"{r['ecoflap']['scores'][0]} to {r['ecoflap']['scores'][1]} | classification from the .pth (evaluate "
+            f"CLI, synthetic, float32): {r['eval']['wall']:.1f} s, agg_metrics "
+            f"{r['eval']['agg']}, launches {r['eval_counts']} | peak "
+            f"{r['peak']:.2f} GiB | {smi}")
+        phase_ended(n)
+    # -- 21. BLIP-2 OPT-2.7B captioning ---------------------------------------------
+    t0 = time.time()
+    opt_counts, o = blip2_opt_path(torch, kernels, out_dir)
+    log(f"BLIP-2 OPT-2.7B captioning (evaluate CLI, synthetic, {OPT_EVAL_BATCHES} batches of "
+        f"{BATCH_SIZE}, beam {OPT_POINT['num_beams']}, {OPT_POINT['max_new_tokens']} tokens, "
+        f"min length {OPT_POINT['min_length']}): {o['cli_wall']:.1f} s incl. model init | "
+        f"generate walls " + ", ".join(f"{w:.3f}" for w in o["generate_s"]) + " s | every "
+        f"caption >= {OPT_POINT['min_length']} tokens with its prompt (shortest "
+        f"{o['shortest']}), {o['finished']} of {OPT_EVAL_BATCHES * BATCH_SIZE} rows finished, "
+        f"finite metrics (CIDEr {o['cider']}) | decode step {o['step_ms']:.3f} ms against a "
+        f"{o['bound_ms']:.3f} ms weight-read bound ({o['step_bytes'] / 1e9:.2f} GB a step), "
+        f"{o['launches_per_step']:.0f} CUDA launches and "
+        + ("not measured" if o["busy_ms_per_step"] is None
+           else f"{o['busy_ms_per_step']:.3f} ms") + " device time a step | peak "
+        f"{o['peak']:.2f} GiB | launches {opt_counts} | {time.time() - t0:.1f} s in all | {smi}")
+    phase_ended(21)
+    # -- 22. stage-1 Q-Former retrieval -----------------------------------------------
+    t0 = time.time()
+    q = qformer_path(torch, kernels, out_dir)
+    log(f"Q-Former retrieval (evaluate CLI, tiny): card metrics equal to the CPU's, "
+        f"{q['metrics']} | --model_scale full ends with the JAX message: {q['refusal']!r} | "
+        f"launches {q['counts']} | {time.time() - t0:.1f} s in all")
+    phase_ended(22)
+    serial = (llama_counts, t5_counts, eva_counts, clip_counts, blip1_counts,
+              cls["deit"]["ecoflap_counts"], cls["convnext"]["ecoflap_counts"])
     assert sum(weights["perturb_inplace"].values()) == sum(
         c["perturb_inplace"] for c in serial) + blip_counts["perturb_inplace"]
     assert sum(weights["perturb"].values()) == blip_counts["perturb"] + sum(
@@ -3193,7 +3643,11 @@ def main(argv=None) -> int:
              "blip2_t5_global_gradmagabs": grad_counts, "blip2_t5_eval_vqa": eval_counts,
              "llama_wikitext_ppl": ppl_counts, "t5": t5_counts, "t5_mmlu": mmlu_counts,
              "eva_clip": eva_counts, "clip": clip_counts, "blip1_upop_caption": blip1_counts,
-             "blip1_eval_captioning": blip1_eval_counts}
+             "blip1_eval_captioning": blip1_eval_counts,
+             "deit": cls["deit"]["wanda_counts"], "deit_ecoflap": cls["deit"]["ecoflap_counts"],
+             "convnext": cls["convnext"]["wanda_counts"],
+             "convnext_ecoflap": cls["convnext"]["ecoflap_counts"],
+             "blip2_opt_eval_captioning": opt_counts}
     by_path = {k: {p: c[k] for p, c in paths.items()} for k in kernels}
     launches = {k: sum(by_path[k].values()) for k in kernels}
     log(json.dumps({"kernels": [

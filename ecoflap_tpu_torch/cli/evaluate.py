@@ -1,7 +1,8 @@
-"""Evaluation CLI for BLIP-2 FlanT5, LLaMA, standalone FlanT5 (MMLU) and
-CLIP / EVA-CLIP (zero-shot classification); port of those branches of
-``ecoflap_tpu/cli/evaluate.py`` (reference evaluate_blip.py:345-491,
-LLaMA/main.py:89-90, mmlu_eval/evaluate_flan.py, CoOp/trainers/zsclip.py).
+"""Evaluation CLI for BLIP-2 FlanT5, LLaMA, standalone FlanT5 (MMLU), CLIP /
+EVA-CLIP (zero-shot classification), BLIP-1, DeiT / ConvNeXt, BLIP-2 OPT
+and the stage-1 Q-Former; port of ``ecoflap_tpu/cli/evaluate.py`` (reference
+evaluate_blip.py:345-491, LLaMA/main.py:89-90, mmlu_eval/evaluate_flan.py,
+CoOp/trainers/zsclip.py).
 The JAX CLI's flags, so a pruned ``.pth`` from
 ``ecoflap_tpu_torch.cli.prune --save_pruned_model`` evaluates as
 
@@ -45,12 +46,27 @@ templates; ``coop``: the dataset's CoOp prompt):
       --vis_root <imagenet val folder> --checkpoint <pruned clip .pth> \
       --prompt_templates coop
 
+DeiT and ConvNeXt report top-1 on random images (``--synthetic``) or on an
+image folder (``--vis_root``, the ``imagenet`` builder), from the random
+init or a pruned ``.pth``; BLIP-2 OPT-2.7B captions random images from the
+prompt "a photo of" (min length 8); the stage-1 Q-Former's retrieval
+(tiny only, as in the JAX CLI) ranks random ViT features against hash-token
+captions:
+
+  python -m ecoflap_tpu_torch.cli.evaluate --model deit --task classification \
+      --model_scale full --synthetic --checkpoint pruned_deit.pth
+  python -m ecoflap_tpu_torch.cli.evaluate --model blip2_opt --task captioning \
+      --model_scale full --synthetic --batch_size 8 --num_beams 5 --max_new_tokens 30
+  python -m ecoflap_tpu_torch.cli.evaluate --model blip2_qformer --task retrieval
+
 A project YAML (``--cfg-path``, ``--options``) sets the flags as in the
 prune CLI. A BLIP-2 ``.pth`` loads in bf16 whatever ``--dtype`` says, as the
 JAX CLI converts it (evaluate.py:604-607); a T5 or CLIP ``.pth`` (the JAX
-CLI reads an orbax directory there) loads in the ``--dtype``. Runs on the
-card unless ``--device cpu``; the result is one JSON line. Other model/task
-pairs are not ported yet (ROADMAP.md, section 1).
+CLI reads an orbax directory there) loads in the ``--dtype``; a DeiT or
+ConvNeXt ``.pth`` in float32 (the JAX CLI converts DeiT's so, and reads
+ConvNeXt from orbax only). Runs on the card unless ``--device cpu``; the
+result is one JSON line. Every model/task pair of the JAX CLI is ported; the
+others raise, as there.
 """
 
 from __future__ import annotations
@@ -125,8 +141,8 @@ def _decode_all(tok, out: torch.Tensor):
 
 def _not_ported(args, where: str):
     return NotImplementedError(
-        f"{args.model}/{args.task} {where} evaluation is not ported to "
-        "ecoflap_tpu_torch yet (ROADMAP.md, section 1)")
+        f"{args.model}/{args.task} {where} evaluation: neither ecoflap_tpu_torch nor "
+        "the JAX CLI has it (ROADMAP.md, section 1)")
 
 
 def _load_pth(model, path: str) -> None:
@@ -242,7 +258,114 @@ def _synthetic_eval(args, device: torch.device, dtype: torch.dtype) -> Dict[str,
     if args.model == "blip1" and args.task in BLIP1_KINDS:
         return _blip1_eval(args, device, dtype, rng, runner)
 
+    if args.model in ("deit", "convnext") and args.task == "classification":
+        # top-1 on random images and labels, 2 batches (evaluate.py:528-548)
+        from ecoflap_tpu_torch.models.classifiers import num_classes
+
+        model = _classifier_model(args, device, dtype)
+        img, ncls = model.cfg.img_size, num_classes(model.cfg)
+        batches = [{
+            "image": rng.normal(size=(args.batch_size, img, img, 3)).astype(np.float32),
+            "label": rng.integers(0, ncls, size=(args.batch_size,)),
+        } for _ in range(2)]
+        return runner.evaluate(setup_task("multimodal_classification",
+                                          classifier_predict_fn(model, device)), batches)
+
+    if args.model == "blip2_opt" and args.task == "captioning":
+        return _blip2_opt_captioning(args, device, dtype, rng, runner)
+
+    if args.model == "blip2_qformer" and args.task == "retrieval":
+        return _blip2_qformer_retrieval(args, device, rng, runner)
+
     raise _not_ported(args, "synthetic")
+
+
+def _classifier_model(args, device, dtype):
+    """DeiT or ConvNeXt at ``--model_scale`` (evaluate.py:171-195), from a
+    ``--checkpoint`` ``.pth`` in float32 (the JAX CLI converts DeiT's in
+    float32 and reads ConvNeXt only from orbax; the port reads ConvNeXt's
+    FB-named ``.pth``, whose names are its own) or the random init at
+    ``--seed`` in ``dtype``."""
+    from ecoflap_tpu_torch.models import classifiers
+
+    cfg = classifiers.build(args.model, args.model_scale)
+    return _model(classifiers, cfg, args, device,
+                  torch.float32 if args.checkpoint else dtype)
+
+
+def classifier_predict_fn(model, device):
+    """batch -> (B, classes) logits of ``batch["image"]``."""
+    w = next(model.parameters())
+
+    @torch.inference_mode()
+    def predict(batch):
+        return model(torch.from_numpy(np.asarray(batch["image"])).to(device, w.dtype))
+
+    return predict
+
+
+def _blip2_opt_captioning(args, device, dtype, rng, runner) -> Dict[str, Any]:
+    """BLIP-2 OPT captioning on random images (evaluate.py:267-310): one
+    shared unpadded prompt, "a photo of"; ``min_length`` 8
+    (caption_coco_opt2.7b_eval.yaml), ``--num_beams``, ``--length_penalty``,
+    OPT's EOS and pad ids; ``--model_scale small`` ends the run."""
+    from ecoflap_tpu_torch.data.calibration import HashTokenizer
+    from ecoflap_tpu_torch.models import blip2_opt
+    from ecoflap_tpu_torch.models.generation import GenerateConfig
+    from ecoflap_tpu_torch.tasks import setup_task
+
+    cfg = blip2_opt.config_for_scale(args.model_scale)
+    model = blip2_opt.build_model(cfg, device=device, dtype=dtype, seed=args.seed)
+    tok = HashTokenizer(vocab_size=cfg.opt.vocab_size)
+    gen = GenerateConfig(max_new_tokens=args.max_new_tokens, num_beams=args.num_beams,
+                         min_length=8, length_penalty=args.length_penalty,
+                         eos_token_id=cfg.opt.eos_token_id, pad_token_id=cfg.opt.pad_token_id)
+    # unpadded: a padded prompt would feed the pad token to decode step 0
+    prompt = np.asarray(tok(["a photo of"], max_length=8, add_eos=False, pad=False)[0],
+                        np.int64)
+
+    def gen_fn(batch):
+        ids = torch.from_numpy(np.repeat(prompt, len(batch["image"]), axis=0)).to(device)
+        out = model.generate(torch.from_numpy(batch["image"]).to(device), ids,
+                             torch.ones_like(ids), gen)
+        return _decode_all(tok, out)
+
+    img, n = cfg.vit.img_size, args.batch_size
+    batches = [{
+        "image": rng.normal(size=(n, img, img, 3)).astype(np.float32),
+        "image_id": list(range(i * n, (i + 1) * n)),
+        "gt_captions": [["a photo"] for _ in range(n)],
+    } for i in range(args.eval_batches)]
+    return runner.evaluate(setup_task("captioning", gen_fn), batches)
+
+
+def _blip2_qformer_retrieval(args, device, rng, runner) -> Dict[str, Any]:
+    """Stage-1 Q-Former retrieval over random frozen ViT features
+    (evaluate.py:361-383): ``compute_sim_matrix`` (the ITC similarity, then
+    the ITM re-rank of each side's top min(8, N)), scored by
+    ``score_retrieval_pair``. Only the tiny float32 model is configured, as
+    in the JAX CLI."""
+    from ecoflap_tpu_torch.data.calibration import HashTokenizer
+    from ecoflap_tpu_torch.models import blip2_qformer as q1
+    from ecoflap_tpu_torch.tasks.retrieval import score_retrieval_pair
+
+    if args.model_scale != "tiny":
+        raise SystemExit("blip2_qformer retrieval: only --model_scale tiny is configured "
+                         "(stage-1 tower over pre-extracted ViT features)")
+    cfg = q1.tiny_config()
+    model = q1.build_model(cfg, device=device, seed=args.seed)
+    tok = HashTokenizer(vocab_size=cfg.vocab_size)
+    n = args.batch_size
+    embeds = torch.from_numpy(rng.normal(size=(n, 8, cfg.qformer.encoder_width))
+                              .astype(np.float32)).to(device)
+    ids, mask = (torch.from_numpy(a).to(device) for a in tok(
+        [f"caption {i}" for i in range(n)], max_length=8))
+    t0 = time.time()
+    metrics = score_retrieval_pair(*q1.compute_sim_matrix(model, embeds, ids, mask,
+                                                          k_test=min(8, n)))
+    metrics["eval_time_s"] = round(time.time() - t0, 2)
+    runner.log_metrics(metrics)
+    return metrics
 
 
 BLIP1_KINDS = {"retrieval": "blip_retrieval", "vqa": "blip_vqa", "nlvr": "blip_nlvr",
@@ -378,6 +501,16 @@ def _real_eval(args, device: torch.device, dtype: torch.dtype) -> Dict[str, Any]
     runner = Runner(args.output_dir, f"eval_{args.model}_{args.task}")
     if args.model in ("clip", "eva_clip") and args.task == "classification":
         return runner.evaluate(*_zero_shot_setup(args, device, dtype))
+    if args.model in ("deit", "convnext") and args.task == "classification":
+        # top-1 on an image folder (evaluate.py:703-720)
+        model = _classifier_model(args, device, dtype)
+        ds = registry.get("builder", "imagenet")(
+            {"vis_root": args.vis_root},
+            vis_processor=ImageEvalProcessor(image_size=model.cfg.img_size))
+        return runner.evaluate(setup_task("multimodal_classification",
+                                          classifier_predict_fn(model, device)),
+                               list(datasets.batch_iterator(ds, args.batch_size,
+                                                            drop_last=True)))
     if not (args.model == "blip2_t5" and args.task in ("vqa", "gqa", "captioning")):
         raise _not_ported(args, "real-data")
     from ecoflap_tpu_torch.models import blip2

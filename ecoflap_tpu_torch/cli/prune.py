@@ -1,6 +1,6 @@
-"""Prune CLI for BLIP-2 FlanT5, LLaMA, standalone FlanT5, CLIP and EVA-CLIP
-(port of the blip2_t5, llama, t5 and clip/eva_clip branches of
-``ecoflap_tpu/cli/prune.py``). The reference flag names, so
+"""Prune CLI for BLIP-2 FlanT5, LLaMA, standalone FlanT5, CLIP, EVA-CLIP and
+the image classifiers DeiT and ConvNeXt (port of ``ecoflap_tpu/cli/prune.py``,
+every ``--model`` of it). The reference flag names, so
 ``scripts/blip2/ecoflap_zeroth.py``'s and ``scripts/llama/ecoflap_zero.sh``'s
 arguments carry over:
 
@@ -71,6 +71,17 @@ CoOp launcher's CLIP prune are
       --max_sparsity_per_layer 0.5 --num_samples 64 --batch_size 16 \
       --num_data_first_stage 64 --save_pruned_model
 
+The image classifiers take ``scripts/llama/image_classifiers.sh``'s flags
+(``--ckpt`` a timm DeiT or an FB ConvNeXt ``.pth``; ``--calib <image folder>``
+calibrates on the folder's images and labels):
+
+  python -m ecoflap_tpu_torch.cli.prune --model deit --model_scale full \
+      --pruning_method deit_wanda_pruner --prune_spec 12-0.5-1.0-1.0 \
+      --num_samples 128 --batch_size 16
+  python -m ecoflap_tpu_torch.cli.prune --model convnext --model_scale full \
+      --pruning_method convnext_wanda_pruner --prune_spec 0-0.5-1.0-1.0 \
+      --num_samples 128 --batch_size 16
+
 (CLIP and EVA-CLIP calibrate on random images and text ids, or with
 ``--calib <image folder> --dataset <CoOp name>`` on the folder's images and
 their class's CoOp prompt; the EVA-CLIP ``.pth`` holds the visual tower
@@ -81,7 +92,8 @@ vocabulary); standalone T5 refuses ``--calib``, which the JAX CLI ignores.
 
 The MeZO coarse stage scores BLIP-2's targets a block at a time by the lane
 ensemble and LLaMA's by the serial in-place cycle; standalone T5 and CLIP
-have no suffix plans, so every target goes the serial way.
+and the classifiers have no suffix plans, so every target goes the serial
+way.
 ``--mezo_ensemble 1`` or ``0`` sends every planned model one way.
 
 Runs on the card unless ``--device cpu``. Without ``--ckpt`` the model is
@@ -101,9 +113,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-# the JAX CLI's --model choices; the ported families, the rest raise
+# the JAX CLI's --model choices, every one ported
 MODELS = ("blip2_t5", "t5", "eva_clip", "clip", "llama", "deit", "convnext")
-PORTED = ("blip2_t5", "t5", "eva_clip", "clip", "llama")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -122,7 +133,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["tiny", "small", "full"],
                    help="tiny = test shapes; small = the mid-scale presets; full "
                         "= EVA ViT-g + FlanT5-XL, LLaMA-7B, FlanT5-XL, CLIP "
-                        "ViT-B/16 or EVA-CLIP-g")
+                        "ViT-B/16, EVA-CLIP-g, DeiT-B or ConvNeXt-T")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--dtype", default="auto", choices=["auto", "float32", "bfloat16"],
@@ -136,8 +147,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prune_spec", default=None,
                    help="llama: the spec of model.layers; blip2_t5: the T5 "
                         "stacks' unless --t5_prune_spec, and every stack's "
-                        "without a spec of its own; t5, clip, eva_clip: every "
-                        "stack's")
+                        "without a spec of its own; t5, clip, eva_clip, deit, "
+                        "convnext: every stack's")
     p.add_argument("--seqlen", type=int, default=2048,
                    help="llama calibration window (32 at --model_scale tiny)")
     p.add_argument("--sparsity_ratio_granularity", default=None,
@@ -173,8 +184,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--calib", default="synthetic",
                    help="synthetic; blip2_t5: LAVIS caption annotations (json, "
                         "images under --vis_root); llama: a C4-style jsonl of "
-                        '{"text": ...} lines; clip/eva_clip: an image-folder root '
-                        "(class subdirectories)")
+                        '{"text": ...} lines; clip/eva_clip/deit/convnext: an '
+                        "image-folder root (class subdirectories)")
     p.add_argument("--vis_root", default="",
                    help="image root for blip2_t5 --calib annotations")
     p.add_argument("--tokenizer_path", default=None,
@@ -380,8 +391,44 @@ def _clip(args, device, dtype):
     return adapter, batch, max(1, n // args.batch_size), stack_specs
 
 
+def _classifier(args, device, dtype):
+    """DeiT or ConvNeXt on the CE loss (cli/prune.py:375-417; reference
+    LLaMA/image_classifiers main.py): random images and labels from
+    ``--seed``, or an image folder (``--calib``, the ``imagenet`` builder and
+    the eval transform, cycled to ``--num_samples``, labels modulo the
+    classes). ``--ckpt`` is a timm DeiT or an FB ConvNeXt ``.pth``."""
+    from ecoflap_tpu_torch.models import classifiers
+
+    cfg = classifiers.build(args.model, args.model_scale)
+    model = classifiers.build_model(cfg, device=device, dtype=dtype,
+                                    seed=None if args.ckpt else args.seed)
+    if args.ckpt:
+        _load_ckpt(model, args.ckpt)
+    n, img, ncls = args.num_samples, cfg.img_size, classifiers.num_classes(cfg)
+    if args.calib != "synthetic":
+        from ecoflap_tpu_torch.core.registry import registry
+        from ecoflap_tpu_torch.data import datasets  # noqa: F401 (registers builders)
+        from ecoflap_tpu_torch.data.processors import ImageEvalProcessor
+
+        folder = registry.get("builder", "imagenet")(
+            {"vis_root": args.calib}, vis_processor=ImageEvalProcessor(image_size=img))
+        items = [folder[i % len(folder)] for i in range(n)]
+        images = np.stack([it["image"] for it in items])
+        labels = [it["label"] % ncls for it in items]
+    else:
+        rng = np.random.default_rng(args.seed)
+        images = rng.normal(size=(n, img, img, 3))
+        labels = rng.integers(0, ncls, size=(n,))
+    batch = {"image": torch.from_numpy(np.asarray(images)).to(dtype),
+             "label": torch.from_numpy(np.asarray(labels, np.int64))}
+    adapter = classifiers.make_adapter(model)
+    stack_specs = ({s.name: args.prune_spec for s in adapter.stacks}
+                   if args.prune_spec else {})
+    return adapter, batch, max(1, n // args.batch_size), stack_specs
+
+
 SETUPS = {"blip2_t5": _blip2, "llama": _llama, "t5": _t5, "clip": _clip,
-          "eva_clip": _clip}
+          "eva_clip": _clip, "deit": _classifier, "convnext": _classifier}
 
 
 def main(argv=None) -> Dict[str, Any]:
@@ -406,10 +453,10 @@ def main(argv=None) -> Dict[str, Any]:
     apply_cfg_path(args, sys.argv[1:] if argv is None else argv, prune=True)
     if not args.model:
         parser.error("--model is required (directly or through --cfg-path)")
-    if args.model not in PORTED:
+    if args.model not in SETUPS:  # a --cfg-path model outside MODELS
         raise NotImplementedError(
-            f"--model {args.model}: pruning is not ported to ecoflap_tpu_torch yet "
-            "(ROADMAP.md, section 1)")
+            f"--model {args.model}: the JAX prune CLI has no such model, nor has "
+            "ecoflap_tpu_torch (ROADMAP.md, section 1)")
     prune_n = prune_m = 0
     if args.sparsity_type != "unstructured" and ":" in args.sparsity_type:
         prune_n, prune_m = map(int, args.sparsity_type.split(":"))

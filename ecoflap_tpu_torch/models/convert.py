@@ -1,5 +1,6 @@
 """Load the JAX package's parameters into the port's model: BLIP-2, LLaMA,
-standalone T5, CLIP / EVA-CLIP, BERT and the four BLIP-1 heads.
+standalone T5, CLIP / EVA-CLIP, BERT, the four BLIP-1 heads, DeiT and
+ConvNeXt, OPT, BLIP-2 OPT and the stage-1 Q-Former.
 
 ``flat`` is the JAX pytree as numpy arrays under dotted names (what
 ``ecoflap_tpu.core.pytree.flatten_named`` gives). Stacked ``(L, ...)`` leaves
@@ -9,7 +10,9 @@ bias tables move onto block 0 as in HF. LLaMA takes the HF names that
 ``ecoflap_tpu/utils/checkpoint.py:export_llama`` writes, T5 those of
 ``export_t5`` and CLIP OpenAI's (``convert_clip``, checkpoint.py:316-379),
 BERT and BLIP-1 UPop's (``export_bert_stack``, ``export_blip1``,
-checkpoint.py:599-849), NLVR's merge layers on every layer.
+checkpoint.py:599-849), NLVR's merge layers on every layer, DeiT timm's
+(``export_eva_vit``), ConvNeXt FB's (``export_convnext``), OPT HF's
+(``export_opt``, ``export_blip2_opt``) and the stage-1 Q-Former LAVIS's.
 """
 
 from __future__ import annotations
@@ -21,8 +24,10 @@ import torch
 
 from ecoflap_tpu_torch.models import bert as bert_mod
 from ecoflap_tpu_torch.models import blip1 as blip1_mod
+from ecoflap_tpu_torch.models import blip2_opt, blip2_qformer, classifiers, eva_vit
 from ecoflap_tpu_torch.models import clip as clip_mod
 from ecoflap_tpu_torch.models import llama as llama_mod
+from ecoflap_tpu_torch.models import opt as opt_mod
 from ecoflap_tpu_torch.models import t5 as t5_mod
 from ecoflap_tpu_torch.utils.checkpoint import unsaved_parameters
 
@@ -64,6 +69,20 @@ def jax_to_state_dict(flat: Flat, cfg, model=None) -> Dict[str, np.ndarray]:
         return sd
     if isinstance(cfg, clip_mod.CLIPConfig):
         return _clip_state_dict(flat, cfg)
+    if isinstance(cfg, eva_vit.EvaViTConfig):  # DeiT
+        sd = {}
+        _eva_into(sd, flat, cfg, "")
+        return sd
+    if isinstance(cfg, classifiers.ConvNeXtConfig):
+        return _convnext_state_dict(flat, cfg)
+    if isinstance(cfg, opt_mod.OPTConfig):
+        sd = {}
+        _opt_into(sd, flat, cfg, "", "model.decoder.")
+        return sd
+    if isinstance(cfg, blip2_opt.Blip2OptConfig):
+        return _blip2_opt_state_dict(flat, cfg)
+    if isinstance(cfg, blip2_qformer.Blip2QformerConfig):
+        return _blip2_qformer_state_dict(flat, cfg)
     return _blip2_state_dict(flat, cfg)
 
 
@@ -85,18 +104,18 @@ def _llama_state_dict(flat: Flat, cfg) -> Dict[str, np.ndarray]:
 
 def _eva_into(sd, flat: Flat, v, pv: str) -> None:
     """An EVA ViT (``v`` its config) from JAX prefix ``pv`` to port prefix
-    ``pv``."""
-    pe = flat[f"{pv}.patch_embed.kernel"]  # (C*p*p, d), rows ordered (C, ph, pw)
-    sd[f"{pv}.patch_embed.proj.weight"] = pe.T.reshape(
+    ``pv`` ("visual_encoder.", "visual." or "" for DeiT)."""
+    pe = flat[f"{pv}patch_embed.kernel"]  # (C*p*p, d), rows ordered (C, ph, pw)
+    sd[f"{pv}patch_embed.proj.weight"] = pe.T.reshape(
         v.embed_dim, v.in_chans, v.patch_size, v.patch_size)
-    sd[f"{pv}.patch_embed.proj.bias"] = flat[f"{pv}.patch_embed.bias"]
-    sd[f"{pv}.cls_token"] = flat[f"{pv}.cls_token"]
-    sd[f"{pv}.pos_embed"] = flat[f"{pv}.pos_embed"]
-    jb = f"{pv}.blocks"
+    sd[f"{pv}patch_embed.proj.bias"] = flat[f"{pv}patch_embed.bias"]
+    sd[f"{pv}cls_token"] = flat[f"{pv}cls_token"]
+    sd[f"{pv}pos_embed"] = flat[f"{pv}pos_embed"]
+    jb = f"{pv}blocks"
     for i in range(v.depth):
-        tb = f"{pv}.blocks.{i}"
+        tb = f"{pv}blocks.{i}"
         _norm(sd, f"{tb}.norm1", flat, f"{jb}.norm1", i)
-        full = v.qkv_bias_mode == "full"  # BLIP-1's ViT-B
+        full = v.qkv_bias_mode == "full"  # BLIP-1's ViT-B, DeiT
         _dense(sd, f"{tb}.attn.qkv", flat, f"{jb}.attn.qkv", i, bias=full)
         if not full:
             sd[f"{tb}.attn.q_bias"] = flat[f"{jb}.attn.q_bias"][i]
@@ -106,9 +125,9 @@ def _eva_into(sd, flat: Flat, v, pv: str) -> None:
         _dense(sd, f"{tb}.mlp.fc1", flat, f"{jb}.mlp.fc1", i)
         _dense(sd, f"{tb}.mlp.fc2", flat, f"{jb}.mlp.fc2", i)
     if v.final_norm:
-        _norm(sd, f"{pv}.norm", flat, f"{pv}.norm")
+        _norm(sd, f"{pv}norm", flat, f"{pv}norm")
     if v.head_dim:
-        _dense(sd, f"{pv}.head", flat, f"{pv}.head")
+        _dense(sd, f"{pv}head", flat, f"{pv}head")
 
 
 def _t5_into(sd, flat: Flat, t, prefix: str) -> None:
@@ -137,13 +156,26 @@ def _t5_into(sd, flat: Flat, t, prefix: str) -> None:
 
 def _blip2_state_dict(flat: Flat, cfg) -> Dict[str, np.ndarray]:
     sd: Dict[str, np.ndarray] = {}
-    _eva_into(sd, flat, cfg.vit, "visual_encoder")
+    _eva_into(sd, flat, cfg.vit, "visual_encoder.")
     _norm(sd, "ln_vision", flat, "ln_vision")
     sd["query_tokens"] = flat["query_tokens"]
+    _qformer_into(sd, flat, cfg.qformer, "qformer.")
+    _dense(sd, "t5_proj", flat, "t5_proj")
+    _t5_into(sd, flat, cfg.t5, "t5_model.")
+    return sd
+
+
+def _qformer_into(sd, flat: Flat, q, jp: str, text: bool = False) -> None:
+    """The Q-Former (``q`` its config) from JAX prefix ``jp`` to
+    ``Qformer.bert``; ``text`` adds the stage-1 model's text embeddings and
+    each layer's text FFN (``intermediate``/``output``)."""
     qb = "Qformer.bert"
-    _norm(sd, f"{qb}.embeddings.LayerNorm", flat, "qformer.embeddings_ln")
-    for i in range(cfg.qformer.num_layers):
-        jl, tl = f"qformer.layers.{i}", f"{qb}.encoder.layer.{i}"
+    _norm(sd, f"{qb}.embeddings.LayerNorm", flat, f"{jp}embeddings_ln")
+    if text:
+        sd[f"{qb}.embeddings.word_embeddings.weight"] = flat[f"{jp}word_embeddings"]
+        sd[f"{qb}.embeddings.position_embeddings.weight"] = flat[f"{jp}position_embeddings"]
+    for i in range(q.num_layers):
+        jl, tl = f"{jp}layers.{i}", f"{qb}.encoder.layer.{i}"
         for jn, tn in (("self_attn", "attention"), ("cross_attn", "crossattention")):
             if f"{jl}.{jn}.query.kernel" not in flat:
                 continue
@@ -151,11 +183,72 @@ def _blip2_state_dict(flat: Flat, cfg) -> Dict[str, np.ndarray]:
                 _dense(sd, f"{tl}.{tn}.self.{proj}", flat, f"{jl}.{jn}.{proj}")
             _dense(sd, f"{tl}.{tn}.output.dense", flat, f"{jl}.{jn}.output.dense")
             _norm(sd, f"{tl}.{tn}.output.LayerNorm", flat, f"{jl}.{jn}.output.ln")
-        _dense(sd, f"{tl}.intermediate_query.dense", flat, f"{jl}.ffn.intermediate")
-        _dense(sd, f"{tl}.output_query.dense", flat, f"{jl}.ffn.output.dense")
-        _norm(sd, f"{tl}.output_query.LayerNorm", flat, f"{jl}.ffn.output.ln")
-    _dense(sd, "t5_proj", flat, "t5_proj")
-    _t5_into(sd, flat, cfg.t5, "t5_model.")
+        ffns = (("_query", "ffn"), ("", "text_ffn")) if text else (("_query", "ffn"),)
+        for suffix, jf in ffns:
+            _dense(sd, f"{tl}.intermediate{suffix}.dense", flat, f"{jl}.{jf}.intermediate")
+            _dense(sd, f"{tl}.output{suffix}.dense", flat, f"{jl}.{jf}.output.dense")
+            _norm(sd, f"{tl}.output{suffix}.LayerNorm", flat, f"{jl}.{jf}.output.ln")
+
+
+def _blip2_qformer_state_dict(flat: Flat, cfg) -> Dict[str, np.ndarray]:
+    sd: Dict[str, np.ndarray] = {"query_tokens": flat["query_tokens"]}
+    _qformer_into(sd, flat, cfg.qformer, "", text=True)
+    for head in ("vision_proj", "text_proj", "itm_head"):
+        _dense(sd, head, flat, head)
+    return sd
+
+
+def _opt_into(sd, flat: Flat, o, jp: str, tp: str) -> None:
+    """An OPT decoder (``o`` its config) from JAX prefix ``jp`` to the HF
+    names under ``tp`` (``export_opt``, checkpoint.py:870-907)."""
+    sd[f"{tp}embed_tokens.weight"] = flat[f"{jp}embed_tokens"]
+    sd[f"{tp}embed_positions.weight"] = flat[f"{jp}embed_positions"]
+    _norm(sd, f"{tp}final_layer_norm", flat, f"{jp}final_ln")
+    for i in range(o.num_layers):
+        tl = f"{tp}layers.{i}"
+        _norm(sd, f"{tl}.self_attn_layer_norm", flat, f"{jp}layers.ln1", i)
+        _norm(sd, f"{tl}.final_layer_norm", flat, f"{jp}layers.ln2", i)
+        for local, path in opt_mod.LOCAL_TO_PATH.items():
+            _dense(sd, f"{tl}.{local}", flat, f"{jp}layers.{path}", i)
+
+
+def _blip2_opt_state_dict(flat: Flat, cfg) -> Dict[str, np.ndarray]:
+    sd: Dict[str, np.ndarray] = {"query_tokens": flat["query_tokens"]}
+    _eva_into(sd, flat, cfg.vit, "visual_encoder.")
+    _norm(sd, "ln_vision", flat, "ln_vision")
+    _qformer_into(sd, flat, cfg.qformer, "qformer.")
+    _dense(sd, "opt_proj", flat, "opt_proj")
+    _opt_into(sd, flat, cfg.opt, "opt_model.", "opt_model.model.decoder.")
+    return sd
+
+
+def _convnext_state_dict(flat: Flat, cfg) -> Dict[str, np.ndarray]:
+    """FB's names (``export_convnext``, checkpoint.py:987-1000): the stem and
+    downsample kernels' rows are in (C, kh, kw) order, the depthwise kernel
+    (7, 7, C) becomes (C, 1, 7, 7)."""
+    sd: Dict[str, np.ndarray] = {}
+    _norm(sd, "norm", flat, "norm")
+    _dense(sd, "head", flat, "head")
+    cin = 3
+    for si, (depth, dim) in enumerate(zip(cfg.depths, cfg.dims)):
+        jd, td = f"stages.{si}.downsample", f"downsample_layers.{si}"
+        conv, ln = (f"{td}.0", f"{td}.1") if si == 0 else (f"{td}.1", f"{td}.0")
+        k = flat[f"{jd}.conv.kernel"]
+        side = int(round((k.shape[0] // cin) ** 0.5))
+        sd[f"{conv}.weight"] = k.T.reshape(dim, cin, side, side)
+        sd[f"{conv}.bias"] = flat[f"{jd}.conv.bias"]
+        _norm(sd, ln, flat, f"{jd}.norm")
+        jb = f"stages.{si}.blocks"
+        for i in range(depth):
+            tb = f"stages.{si}.{i}"
+            sd[f"{tb}.dwconv.weight"] = np.transpose(
+                flat[f"{jb}.dwconv.kernel"][i], (2, 0, 1))[:, None]
+            sd[f"{tb}.dwconv.bias"] = flat[f"{jb}.dwconv.bias"][i]
+            _norm(sd, f"{tb}.norm", flat, f"{jb}.norm", i)
+            _dense(sd, f"{tb}.pwconv1", flat, f"{jb}.pwconv1", i)
+            _dense(sd, f"{tb}.pwconv2", flat, f"{jb}.pwconv2", i)
+            sd[f"{tb}.gamma"] = flat[f"{jb}.gamma"][i]
+        cin = dim
     return sd
 
 
@@ -184,7 +277,7 @@ def _clip_state_dict(flat: Flat, cfg) -> Dict[str, np.ndarray]:
     _norm(sd, "ln_final", flat, "text.ln_final")
     _resblocks_into(sd, flat, "transformer", "text", cfg.text.layers)
     if cfg.eva_visual is not None:
-        _eva_into(sd, flat, cfg.eva_visual, "visual")
+        _eva_into(sd, flat, cfg.eva_visual, "visual.")
         return sd
     v = cfg.visual
     sd["visual.conv1.weight"] = flat["visual.conv1.kernel"].T.reshape(
@@ -238,7 +331,7 @@ def _bert_into(sd, flat: Flat, cfg, jp: str, tp: str, lm_head: bool = False,
 
 def _blip1_state_dict(flat: Flat, cfg, kind: str) -> Dict[str, np.ndarray]:
     sd: Dict[str, np.ndarray] = {}
-    _eva_into(sd, flat, cfg.vit, "visual_encoder")
+    _eva_into(sd, flat, cfg.vit, "visual_encoder.")
     if kind in ("blip_caption", "blip_vqa"):
         _bert_into(sd, flat, cfg.text, "text_decoder.", "text_decoder.bert.", lm_head=True)
     if kind != "blip_caption":

@@ -6,8 +6,10 @@ and global_pruner.py:56-244).
 
 Registered under the reference names ``blipt5_wanda_pruner``,
 ``llama_wanda_pruner``, ``t5_wanda_pruner``, ``vit_wanda_pruner`` and
-``clip_wanda_pruner``, and for BLIP-1 ``bert_wanda_pruner`` and
-``blipbert_wanda_pruner`` (``TwoStagePruner``), ``blipt5_sparsegpt_pruner``,
+``clip_wanda_pruner``, for BLIP-1 ``bert_wanda_pruner`` and
+``blipbert_wanda_pruner``, and for the image classifiers
+``deit_wanda_pruner``, ``vit_classifier_wanda_pruner`` and
+``convnext_wanda_pruner`` (``TwoStagePruner``), ``blipt5_sparsegpt_pruner``,
 ``llama_sparsegpt_pruner``, ``t5_sparsegpt_pruner``, ``vit_sparsegpt_pruner``
 and ``clip_sparsegpt_pruner`` (``SparseGPTPruner``),
 ``blipt5_global_mag_pruner`` and ``llama_magnitude_pruner`` (magnitude),
@@ -394,6 +396,9 @@ for _family in ("blipt5", "llama", "t5", "vit", "clip"):
     registry.register("pruner", f"{_family}_sparsegpt_pruner", SparseGPTPruner)
 # BLIP-1's text towers (the UPop runs): Wanda only, as in the JAX package
 for _name in ("bert_wanda_pruner", "blipbert_wanda_pruner"):
+    registry.register("pruner", _name, TwoStagePruner)
+# the image classifiers (LLaMA/image_classifiers): Wanda only
+for _name in ("deit_wanda_pruner", "vit_classifier_wanda_pruner", "convnext_wanda_pruner"):
     registry.register("pruner", _name, TwoStagePruner)
 registry.register("pruner", "blipt5_global_mag_pruner", GlobalMagPruner)
 registry.register("pruner", "blipt5_global_gradmagabs_pruner", GlobalGradMagAbsPruner)

@@ -60,9 +60,10 @@ def score_retrieval_pair(sim_i2t: np.ndarray, sim_t2i: np.ndarray,
 
 def rerank_pair(sim: np.ndarray, itm_match: Callable[[np.ndarray, np.ndarray], np.ndarray],
                 k: int):
-    """(score_i2t, score_t2i) after the ITM re-rank of each side's top-``k``:
-    ``itm_match(image rows, text rows)`` gives the match logit of each pair,
-    which is added to the pair's similarity."""
+    """(score_i2t, score_t2i) after the ITM re-rank of each image's top
+    ``k`` texts and each text's top ``k`` images (each side clipped to the
+    candidates it has): ``itm_match(image rows, text rows)`` gives the match
+    logit of each pair, which is added to the pair's similarity."""
     n_img, n_txt = sim.shape
     score_i2t = np.full_like(sim, -np.inf)
     for i in range(n_img):

@@ -7,7 +7,11 @@ checkpoint: the keys that ``export_blip2`` (checkpoint.py:456-473),
 ``export_llama`` (:291), ``export_t5`` (:227) and ``export_blip1`` (:803)
 write and ``convert_clip`` (:342) reads, in float32 as they write them.
 ``state_dict`` leaves out non-persistent buffers. A BLIP-1 model loads with
-``convert_blip1``'s semantics (``load_blip1``).
+``convert_blip1``'s semantics (``load_blip1``). ConvNeXt, OPT and BLIP-2
+OPT keep FB's and HF's names, so ``load_into`` and ``export_state_dict``
+are their converters (the JAX ``convert_``/``export_convnext``, ``_opt``
+and ``_blip2_opt``); ``load_into`` ignores BLIP-2 OPT's tied
+``opt_model.lm_head.weight``, which the export leaves out.
 """
 
 from __future__ import annotations

@@ -177,7 +177,7 @@ def test_without_a_card_the_default_device_raises(tmp_path):
 
 @pytest.mark.parametrize("argv", [
     ["--model", "t5", "--task", "mmlu", "--ann", "x.json"],
-    ["--model", "blip2_opt", "--task", "captioning", "--synthetic"],
+    ["--model", "blip2_opt", "--task", "vqa", "--synthetic"],
     ["--model", "llama", "--task", "wikitext_ppl", "--ann", "x.json"],
 ], ids=["t5_mmlu", "blip2_opt", "llama_real"])
 def test_unported_pairs_name_the_roadmap(tmp_path, argv):

@@ -87,8 +87,8 @@ def test_one_sparsity_dict_gives_equal_masks():
 
 def test_unknown_pruner_name_lists_the_known_ones():
     with pytest.raises(KeyError, match="blipt5_wanda_pruner"):
-        # a reference name the port does not register yet (ConvNeXt's)
-        tload("convnext_wanda_pruner", None, None, 1)
+        # a name neither package registers (OPT is evaluated, never pruned)
+        tload("opt_wanda_pruner", None, None, 1)
 
 
 def test_cli_writes_the_jax_cli_keys(tmp_path):
