@@ -161,8 +161,20 @@ BLIP-2 OPT's greedy and beam-5 tokens and tiny Q-Former retrieval's ITC
 similarities and ITM logits, card against CPU (f32). Phase 2 also holds the in-place kernel at CLIP ViT-B/16's
 eight weight shapes (BLIP-1's and DeiT-B's are among them) and at
 ConvNeXt-T's. Kernel
-launch counts are set to 0 just before each of phases 4 to 8 and 10 to 22
-(phases 18-20: each prune, then the eval) and read just after it. The line before the last holds the card's
+launch counts are set to 0 just before each of phases 4 to 8 and 10 to 23
+(phases 18-20: each prune, then the eval) and read just after it. Phase 23
+(the mesh on the card): with torchrun's variables for one rank, an NCCL
+group of world size 1 and phase 19's DeiT-B ECoFLaP run through the prune
+CLI with ``--mesh dp=1,tp=1``, its dict and ``.pth`` bit-identical to phase
+19's and 288 kernel-1 launches; then ``torch.distributed.run
+--nproc-per-node 1`` of the evaluate CLI with ``--mesh dp`` on that
+``.pth`` with its head planted (phase 19's images' predictions set to their
+labels for every other image: top-1 exactly 50.0); then each tp rank of
+``models/layers.linear`` run in turn at LLaMA-7B's q_proj and down_proj
+shapes in bf16 at tp 2 and 4, the ranks' collectives joined as NCCL joins
+them, each within 1 bf16 ulp of the unsharded product (an output under 1/64
+of the product's RMS counted at that magnitude: there the sum cancels, and
+two float32 orders differ by more than its ulp). The line before the last holds the card's
 ``name, power.limit``; the last is ``{"ok": true, "device": {...}}``.
 """
 
@@ -493,6 +505,19 @@ DEIT_HEAD_SCALE = 16.0
 # a coarse stage that scores: at least half the targets non-zero, in at
 # least 4 distinct values (a stage that scores nothing, or one constant,
 # fails)
+HERE = os.path.dirname(os.path.abspath(__file__))
+# phase 23 (c): LLaMA-7B's q_proj and down_proj (in, out), tokens, tp sizes
+TP_SHAPES = {"q_proj": (4096, 4096), "down_proj": (11008, 4096)}
+TP_TOKENS = 2048
+TP_SIZES = (2, 4)
+TP_ULP_FLOOR = 2.0 ** -6
+TORCHRUN_TIMEOUT_S = 300
+# phase 23 (b): the planted head's logit for an image's planted class, and
+# the least margin over the others that its check accepts
+PLANT_LOGIT = 10.0
+PLANT_MARGIN = 5.0
+TP_PATHS = {"q_proj": "model.layers.0.self_attn.q_proj",
+            "down_proj": "model.layers.0.mlp.down_proj"}
 CLS_MIN_NONZERO = 0.5
 CLS_MIN_DISTINCT = 4
 # phase 21, caption_coco_opt2.7b_eval.yaml's decode point through the
@@ -2581,7 +2606,7 @@ def slice12_tiny_checks(torch):
     return out
 
 
-def classifier_path(torch, kernels, out_dir, read_flat_yaml, kind):
+def classifier_path(torch, kernels, out_dir, read_flat_yaml, kind, keep=False):
     """Phase 19 (``deit``, DeiT-B) or 20 (``convnext``, ConvNeXt-T): a
     reference-named ``.pth`` of the seed's weights (timm's names with the
     head scaled by ``DEIT_HEAD_SCALE``, or FB's with layer scales from
@@ -2589,7 +2614,10 @@ def classifier_path(torch, kernels, out_dir, read_flat_yaml, kind):
     CLI with the launcher's flags (Wanda, uniform), then again with the
     ECoFLaP block MeZO stage (kernel 1 counted) and ``--save_pruned_model``;
     that ``.pth`` read back tensor by tensor, then classified on random
-    images through the evaluate CLI. Returns the readings and counts."""
+    images through the evaluate CLI. Returns the readings and counts; with
+    ``keep`` the folder stays, and ``out["kept"]`` names its checkpoint, the
+    ECoFLaP run's argv, dict and ``.pth`` (phase 23 reruns that run), and
+    holds a head planted on the eval's images (``plant_head``)."""
     from ecoflap_tpu_torch.cli import evaluate as ev
     from ecoflap_tpu_torch.cli import prune as cli
     from ecoflap_tpu_torch.models import classifiers
@@ -2657,21 +2685,42 @@ def classifier_path(torch, kernels, out_dir, read_flat_yaml, kind):
             "pth_write_s": res["pth_write_s"], "pth_read_s": time.time() - t0}
         out["ecoflap_counts"] = counts
         pth = res["pth"]
+        out["kept"] = {"dir": pth_dir, "argv": argv + CLS_ECOFLAP, "pth": pth,
+                       "sparsity_dict": res["sparsity_dict"]}
         del res, state, own
         gc.collect()
+        recorded, predict_fn = [], ev.classifier_predict_fn
+
+        def recording(model, device):
+            fn = predict_fn(model, device)
+
+            def predict(batch):
+                recorded.append((model, batch))
+                return fn(batch)
+
+            return predict
+
+        ev.classifier_predict_fn = recording
         reset_counts(kernels)
         t0 = time.time()
-        metrics = ev.main(["--model", kind, "--task", "classification", "--model_scale", "full",
-                           "--synthetic", "--checkpoint", pth, "--batch_size", str(CLS_BATCH),
-                           "--output_dir", pth_dir])
+        try:
+            metrics = ev.main(["--model", kind, "--task", "classification", "--model_scale",
+                               "full", "--synthetic", "--checkpoint", pth, "--batch_size",
+                               str(CLS_BATCH), "--output_dir", pth_dir])
+        finally:
+            ev.classifier_predict_fn = predict_fn
         out["eval"] = {"wall": time.time() - t0, "agg": metrics["agg_metrics"]}
         out["eval_counts"] = read_counts(kernels)
+        if keep:
+            out["kept"]["plant"] = plant_head(torch, recorded)
+        del recorded
         assert not any(out["eval_counts"].values()), out["eval_counts"]
         assert 0.0 <= metrics["agg_metrics"] <= 100.0, metrics
         out["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
         assert out["peak"] <= CLS_PEAK_GIB, out["peak"]
     finally:
-        shutil.rmtree(pth_dir, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(pth_dir, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -2957,6 +3006,277 @@ def check_scores_and_dict(read_flat_yaml, res, n_targets, cap, target, distinct=
     return vals, sd
 
 
+def bf16_ulps(a, b, floor=2.0 ** -126):
+    """|a - b| of two bf16 tensors in bf16 ulps of the larger magnitude, or
+    of ``floor`` where both are smaller, per element (an ulp of x is
+    2^(e - 8) for x = m 2^e, 0.5 <= m < 1)."""
+    import torch
+
+    af, bf = a.float(), b.float()
+    big = torch.maximum(af.abs(), bf.abs()).clamp_min(floor)
+    _, e = torch.frexp(big)
+    return (af - bf).abs() / torch.ldexp(torch.ones_like(big), e - 8)
+
+
+def plant_head(torch, recorded):
+    """A classifier head planted on the images of a recorded evaluation
+    (``(model, batch)`` per batch of the evaluate CLI's DeiT-B run, the
+    model as the CLI loaded it from the ``.pth``): image i's planted class
+    is its label for even i and the next class for odd i, so a top-1 of
+    exactly 50.0 needs the checkpoint loaded, every image scored in order
+    against its own label, and none dropped. The head's inputs come from the
+    model's own forward with its head swapped for the identity; the weights
+    are the least-squares fit (float64, centred) of ``PLANT_LOGIT`` at the
+    planted class and 0 elsewhere, then checked through the model's own
+    forward with the planted head: each image's planted class wins by
+    ``PLANT_MARGIN``. Returns the head's weight and bias (CPU, float32),
+    the top-1 they give and the least margin."""
+    import numpy as np
+
+    model = recorded[0][0]
+    head = model.head
+    d, ncls = head.weight.shape[1], head.weight.shape[0]
+    dev, dtype = head.weight.device, head.weight.dtype
+    images = [torch.from_numpy(np.asarray(b["image"])).to(dev, dtype) for _, b in recorded]
+    labels = np.concatenate([np.asarray(b["label"]) for _, b in recorded])
+    planted = labels.copy()
+    planted[1::2] = (labels[1::2] + 1) % ncls
+
+    def forward_with(w, b):
+        model.head = torch.nn.Linear(w.shape[1], w.shape[0], device=dev, dtype=dtype)
+        try:
+            with torch.no_grad():
+                model.head.weight.copy_(w)
+                model.head.bias.copy_(b)
+            with torch.inference_mode():
+                return torch.cat([model(x) for x in images]).float()
+        finally:
+            model.head = head
+
+    feats = forward_with(torch.eye(d), torch.zeros(d)).double().cpu()
+    target = torch.zeros(len(labels), ncls, dtype=torch.float64)
+    target[torch.arange(len(labels)), torch.from_numpy(planted)] = PLANT_LOGIT
+    mean_f, mean_t = feats.mean(0), target.mean(0)
+    w = (torch.linalg.pinv(feats - mean_f) @ (target - mean_t)).T
+    b = mean_t - w @ mean_f
+    w, b = w.float(), b.float()
+    top2 = forward_with(w, b).cpu().topk(2, dim=-1)
+    assert np.array_equal(top2.indices[:, 0].numpy(), planted), "the planted head misses"
+    margin = (top2.values[:, 0] - top2.values[:, 1]).min().item()
+    assert margin >= PLANT_MARGIN, margin
+    return {"weight": w, "bias": b, "agg": 100.0 * float(np.mean(planted == labels)),
+            "margin": margin}
+
+
+class JoinedCollectives:
+    """Stands in for ``parallel.mesh``'s ``all_gather_cat`` and
+    ``all_reduce_`` while the tp ranks of one product run in turn on one
+    card: the first pass records each rank's operand, the second returns
+    what the collective gives every rank (the operands concatenated in rank
+    order, or summed in rank order in their float32)."""
+
+    def __init__(self):
+        self.parts, self.joining = [], False
+
+    def all_gather_cat(self, x, dim, group, size):
+        import torch
+
+        if not self.joining:
+            self.parts.append(x.clone())
+            return torch.cat([x] * size, dim=dim)
+        return torch.cat(self.parts, dim=dim)
+
+    def all_reduce_(self, x, group):
+        if not self.joining:
+            self.parts.append(x.clone())
+            return x
+        total = self.parts[0].clone()
+        for part in self.parts[1:]:
+            total += part
+        return x.copy_(total)
+
+
+def tp_linear(torch, path, w, x, tp):
+    """Each tp rank's ``models/layers.linear(x, ...)`` with its shard of
+    ``w``, placed by ``parallel.sharding.shard_params`` under LLaMA's name
+    ``path``, the ranks run in turn and their collectives joined by
+    ``JoinedCollectives``. Returns (the sharded dim, the ranks' outputs)."""
+    from ecoflap_tpu_torch.models.layers import linear
+    from ecoflap_tpu_torch.parallel import mesh as M
+    from ecoflap_tpu_torch.parallel.sharding import shard_of, shard_params
+
+    lins = []
+    for rank in range(tp):
+        root = mod = torch.nn.Module()
+        *parents, leaf = path.split(".")
+        for name in parents:
+            mod.add_module(name, torch.nn.Module())
+            mod = getattr(mod, name)
+        mod.add_module(leaf, torch.nn.Linear(w.shape[1], w.shape[0], bias=False,
+                                             device=w.device, dtype=w.dtype))
+        root.requires_grad_(False)
+        with torch.no_grad():
+            root.get_submodule(path).weight.copy_(w)
+        shard_params(root, M.Mesh(dp=1, tp=tp, dp_rank=0, tp_rank=rank))
+        lins.append(root.get_submodule(path))
+    joined = JoinedCollectives()
+    saved = M.all_gather_cat, M.all_reduce_
+    M.all_gather_cat, M.all_reduce_ = joined.all_gather_cat, joined.all_reduce_
+    try:
+        with torch.inference_mode():
+            for lin in lins:
+                linear(x, lin)
+            joined.joining = True
+            outs = [linear(x, lin) for lin in lins]
+    finally:
+        M.all_gather_cat, M.all_reduce_ = saved
+    assert len(joined.parts) == tp, len(joined.parts)
+    return shard_of(lins[0]).dim, outs
+
+
+def tp_arithmetic(torch):
+    """Phase 23 (c): ``models/layers.linear``'s tensor-parallel arithmetic
+    on one card at LLaMA-7B shapes, bf16: ``tp_linear`` runs each rank's
+    ``linear()`` in turn and joins the ranks as the collectives join them,
+    q_proj (4096 -> 4096) column-parallel (each shard's product, gathered),
+    down_proj (11008 -> 4096) row-parallel (each shard's float32 partial
+    product, summed in float32, rounded once); every rank's output must be
+    the same. Beside it the sum of bf16 partials, rounded tp times. Every
+    result against the unsharded product in bf16 ulps of each output: the
+    largest count (gated at 1) with an output smaller than
+    ``TP_ULP_FLOOR`` x the product's RMS counted at that magnitude (below it
+    the sum cancels, and two float32 orders of 11,008 products differ by
+    more than its bf16 ulp: the unsharded product is no exacter there), the
+    largest count at a floor of RMS / 256, and the share of outputs within
+    1 ulp with no floor."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    for name, (n_in, n_out) in TP_SHAPES.items():
+        x = torch.randn(TP_TOKENS, n_in, generator=g, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(n_out, n_in, generator=g, device="cuda") * n_in ** -0.5
+             ).to(torch.bfloat16)
+        ref = F.linear(x, w)
+        rms = ref.float().square().mean().sqrt().item()
+
+        def ulps(y):
+            return {"ulps": bf16_ulps(y, ref, TP_ULP_FLOOR * rms).max().item(),
+                    "ulps_at_rms/256": bf16_ulps(y, ref, rms / 256).max().item(),
+                    "share_1ulp_no_floor": (bf16_ulps(y, ref) <= 1).float().mean().item()}
+
+        for tp in TP_SIZES:
+            dim, outs = tp_linear(torch, TP_PATHS[name], w, x, tp)
+            assert dim == (0 if name == "q_proj" else 1), (name, dim)
+            assert all(torch.equal(o, outs[0]) for o in outs[1:]), (name, tp, "ranks differ")
+            if name == "q_proj":  # column-parallel: the out dim split
+                out[name, tp] = {"column": ulps(outs[0])}
+            else:  # row-parallel: the in dim split
+                xs, ws = x.chunk(tp, dim=-1), w.chunk(tp, dim=-1)
+                b16 = F.linear(xs[0], ws[0])
+                for a, b in zip(xs[1:], ws[1:]):
+                    b16 = b16 + F.linear(a, b)
+                out[name, tp] = {"row_f32_partials": ulps(outs[0]),
+                                 "row_bf16_partials": ulps(b16)}
+    torch.cuda.synchronize()
+    return out
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_path(torch, kernels, kept):
+    """Phase 23: the mesh on the card.
+    (a) with torchrun's variables set for one rank, an NCCL group of world
+    size 1, then phase 19's DeiT-B ECoFLaP run through the prune CLI with
+    ``--mesh dp=1,tp=1``: its sparsity dict and ``.pth`` bit-identical to
+    phase 19's, kernel 1 counted; the group destroyed.
+    (b) ``python -m torch.distributed.run --nproc-per-node 1`` of the
+    evaluate CLI with ``--mesh dp`` on that ``.pth`` with phase 19's
+    planted head (``plant_head``): its top-1 exactly the planted 50.0.
+    (c) ``tp_arithmetic``."""
+    import torch.distributed as dist
+
+    from ecoflap_tpu_torch.cli import prune as cli
+    from ecoflap_tpu_torch.parallel.dist import destroy, init_distributed_mode
+
+    out = {}
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    mesh_dir = os.path.join(kept["dir"], "mesh")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        t0 = time.time()
+        assert init_distributed_mode("cuda") and dist.get_backend() == "nccl"
+        assert dist.get_world_size() == 1
+        out["init_s"] = time.time() - t0
+        res, wall, counts = run_path(cli, kernels, kept["argv"] + [
+            "--mesh", "dp=1,tp=1", "--save_pruned_model", "--output_dir", mesh_dir])
+        assert dist.is_initialized()  # the CLI leaves a group it did not start
+        destroy()
+        assert not dist.is_initialized()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out["wall"], out["counts"] = wall, counts
+    n = CLS_TARGETS["deit"]
+    assert counts == {"perturb_inplace": 3 * n * (CLS_FIRST_STAGE // CLS_BATCH),
+                      "perturb": 0, "flash_attention": 0, "flash_attention_bwd": 0}, counts
+    with open(res["sparsity_dict"], "rb") as f, open(kept["sparsity_dict"], "rb") as g:
+        assert f.read() == g.read(), "the --mesh dp=1,tp=1 sparsity dict differs"
+    a, b = torch.load(res["pth"], weights_only=True), torch.load(kept["pth"], weights_only=True)
+    assert sorted(a) == sorted(b)
+    bad = [k for k in a if not torch.equal(a[k], b[k])]
+    assert not bad, bad[:3]
+    out["pth_tensors"] = len(a)
+    del res, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) the documented launch, one rank over NCCL, on the planted .pth
+    t0 = time.time()
+    plant = kept["plant"]
+    state = torch.load(kept["pth"], weights_only=True)
+    assert state["head.weight"].shape == plant["weight"].shape, state["head.weight"].shape
+    state["head.weight"], state["head.bias"] = plant["weight"], plant["bias"]
+    planted_pth = os.path.join(mesh_dir, "deit_planted_head.pth")
+    os.makedirs(mesh_dir, exist_ok=True)
+    torch.save(state, planted_pth)
+    del state
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "1",
+           "--master-addr", "127.0.0.1", "--master-port", str(free_port()),
+           "-m", "ecoflap_tpu_torch.cli.evaluate", "--model", "deit", "--task",
+           "classification", "--model_scale", "full", "--synthetic", "--checkpoint",
+           planted_pth, "--batch_size", str(CLS_BATCH), "--mesh", "dp",
+           "--output_dir", mesh_dir]
+    env_run = {k: v for k, v in os.environ.items() if k not in env}
+    env_run["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else []))
+    run = subprocess.run(cmd, cwd=HERE, env=env_run, capture_output=True, text=True,
+                         timeout=TORCHRUN_TIMEOUT_S)
+    out["torchrun_s"] = time.time() - t0
+    assert run.returncode == 0, run.stderr[-3000:]
+    metrics = json.loads([x for x in run.stdout.splitlines() if x.startswith("{")][-1])
+    assert plant["agg"] == 50.0 and metrics["agg_metrics"] == plant["agg"], (metrics, plant)
+    out["agg"], out["plant_margin"] = metrics["agg_metrics"], plant["margin"]
+    # (c)
+    t0 = time.time()
+    out["tp"] = tp_arithmetic(torch)
+    out["tp_s"] = time.time() - t0
+    for (name, tp), r in out["tp"].items():
+        key = "column" if name == "q_proj" else "row_f32_partials"
+        assert r[key]["ulps"] <= 1.0, (name, tp, r)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -2968,7 +3288,7 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; nothing run",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, HERE)
     from ecoflap_tpu_torch.ops import attention as A
     from ecoflap_tpu_torch.ops import build
     from ecoflap_tpu_torch.ops import perturb as P
@@ -3592,7 +3912,8 @@ def main(argv=None) -> int:
     cls = {}
     for n, kind in ((19, "deit"), (20, "convnext")):
         t0 = time.time()
-        cls[kind] = classifier_path(torch, kernels, out_dir, read_flat_yaml, kind)
+        cls[kind] = classifier_path(torch, kernels, out_dir, read_flat_yaml, kind,
+                                    keep=kind == "deit")
         r = cls[kind]
         log_new_path(f"{CLS_NAMES[kind]} ECoFLaP (scripts/llama/image_classifiers.sh + block "
                      f"MeZO, {CLS_FIRST_STAGE} samples)", r["ecoflap_counts"], r["ecoflap"])
@@ -3631,6 +3952,29 @@ def main(argv=None) -> int:
         f"{q['metrics']} | --model_scale full ends with the JAX message: {q['refusal']!r} | "
         f"launches {q['counts']} | {time.time() - t0:.1f} s in all")
     phase_ended(22)
+    # -- 23. the mesh on the card -------------------------------------------------------
+    t0 = time.time()
+    kept = cls["deit"]["kept"]
+    try:
+        m = mesh_path(torch, kernels, kept)
+    finally:
+        shutil.rmtree(kept["dir"], ignore_errors=True)
+    log(f"mesh (phase 23): (a) NCCL group of world size 1 in {m['init_s']:.2f} s, then "
+        f"phase 19's DeiT-B ECoFLaP run through the prune CLI with --mesh dp=1,tp=1: "
+        f"{m['wall']:.1f} s incl. model init, {m['counts']['perturb_inplace']} kernel-1 "
+        f"launches (3 x {CLS_TARGETS['deit']} x {CLS_FIRST_STAGE // CLS_BATCH}), sparsity "
+        f"dict byte-identical and {m['pth_tensors']} .pth tensors equal to phase 19's | "
+        f"(b) torchrun --nproc-per-node 1 evaluate CLI --mesh dp on that .pth with its "
+        f"head planted on phase 19's images (least margin {m['plant_margin']:.3f}): "
+        f"{m['torchrun_s']:.1f} s, agg_metrics {m['agg']} (planted 50.0) | (c) each tp "
+        f"rank's linear() in turn, the collectives joined, bf16, "
+        f"{TP_TOKENS} tokens, against the unsharded product (max bf16 ulps at a floor "
+        f"of RMS x {TP_ULP_FLOOR:g} / at RMS / 256 / share within 1 ulp, no floor): "
+        + ", ".join(f"{name} tp={tp} " + " ".join(
+            f"{k} {v['ulps']:g} / {v['ulps_at_rms/256']:g} / {v['share_1ulp_no_floor']:.6f}"
+            for k, v in r.items()) for (name, tp), r in m["tp"].items())
+        + f" ({m['tp_s']:.2f} s) | {time.time() - t0:.1f} s in all | {smi}")
+    phase_ended(23)
     serial = (llama_counts, t5_counts, eva_counts, clip_counts, blip1_counts,
               cls["deit"]["ecoflap_counts"], cls["convnext"]["ecoflap_counts"])
     assert sum(weights["perturb_inplace"].values()) == sum(
@@ -3647,7 +3991,7 @@ def main(argv=None) -> int:
              "deit": cls["deit"]["wanda_counts"], "deit_ecoflap": cls["deit"]["ecoflap_counts"],
              "convnext": cls["convnext"]["wanda_counts"],
              "convnext_ecoflap": cls["convnext"]["ecoflap_counts"],
-             "blip2_opt_eval_captioning": opt_counts}
+             "blip2_opt_eval_captioning": opt_counts, "deit_ecoflap_mesh": m["counts"]}
     by_path = {k: {p: c[k] for p, c in paths.items()} for k in kernels}
     launches = {k: sum(by_path[k].values()) for k in kernels}
     log(json.dumps({"kernels": [

@@ -119,6 +119,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "cifar100 or any of the 11 CoOp dataset names")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--mesh", default="none",
+                   help="'none' | 'dp' | 'dp=N,tp=M' over torchrun's ranks: each dp "
+                        "rank predicts its slice of every batch (batch_size divisible "
+                        "by dp) and rank 0 writes the metrics; tp > 1 splits the "
+                        "weights the tp rules match")
     p.add_argument("--eval_batches", type=int, default=2,
                    help="synthetic eval: number of batches (>= 3 separates the "
                         "first batch from the steady rate)")
@@ -133,6 +138,31 @@ def build_parser() -> argparse.ArgumentParser:
                    help="tiny-scale T5 vocab override (e.g. to match a "
                         "--tokenizer_path vocab)")
     return p
+
+
+# the tasks that score one prediction per sample: under --mesh dp each rank
+# predicts its slice of a batch and the predictions are gathered
+PER_SAMPLE_TASKS = ("vqa", "gqa", "captioning", "multimodal_classification")
+
+
+def _task(name: str, fn, *args, **kwargs):
+    """``tasks.setup_task``; a per-sample task's prediction callable runs on
+    this rank's dp slice of each batch under an active mesh
+    (``parallel.sharding.dp_map``)."""
+    from ecoflap_tpu_torch.parallel.sharding import dp_map
+    from ecoflap_tpu_torch.tasks import setup_task
+
+    return setup_task(name, dp_map(fn) if name in PER_SAMPLE_TASKS else fn,
+                      *args, **kwargs)
+
+
+def _place(model):
+    """The model's weights split over tp when the active mesh has tp > 1."""
+    from ecoflap_tpu_torch.parallel.mesh import current
+    from ecoflap_tpu_torch.parallel.sharding import shard_params
+
+    mesh = current()
+    return shard_params(model, mesh) if mesh is not None else model
 
 
 def _decode_all(tok, out: torch.Tensor):
@@ -161,26 +191,27 @@ def _model(mod, cfg, args, device, dtype):
                             seed=None if args.checkpoint else args.seed)
     if args.checkpoint:
         _load_pth(model, args.checkpoint)
-    return model
+    return _place(model)
 
 
 def _synthetic_eval(args, device: torch.device, dtype: torch.dtype) -> Dict[str, Any]:
     """The JAX CLI's smoke evaluation on random data (evaluate.py:206-265)."""
     from ecoflap_tpu_torch.data.calibration import HashTokenizer
+    from ecoflap_tpu_torch.parallel.dist import is_main_process
     from ecoflap_tpu_torch.runners.runner import Runner
-    from ecoflap_tpu_torch.tasks import setup_task
 
     rng = np.random.default_rng(args.seed)
-    runner = Runner(args.output_dir, f"eval_{args.model}_{args.task}")
+    runner = Runner(args.output_dir, f"eval_{args.model}_{args.task}",
+                    write=is_main_process())
 
     if args.model == "llama" and args.task == "wikitext_ppl":
         from ecoflap_tpu_torch.models import llama
 
         cfg = llama.config_for_scale(args.model_scale)
-        model = llama.build_model(cfg, device=device, dtype=dtype, seed=args.seed)
+        model = _place(llama.build_model(cfg, device=device, dtype=dtype, seed=args.seed))
         stream = rng.integers(2, cfg.vocab_size, size=(64 * 32,))
         seqlen = args.seqlen if args.model_scale != "tiny" else 32
-        task = setup_task(args.task, lambda s: llama.perplexity(
+        task = _task(args.task, lambda s: llama.perplexity(
             model, torch.from_numpy(s).to(device), seqlen=seqlen,
             batch_size=args.batch_size))
         return runner.evaluate(task, stream)
@@ -190,7 +221,7 @@ def _synthetic_eval(args, device: torch.device, dtype: torch.dtype) -> Dict[str,
         from ecoflap_tpu_torch.models.generation import GenerateConfig
 
         cfg = blip2.config_for_scale(args.model_scale, args.vocab_size)
-        model = blip2.build_model(cfg, device=device, dtype=dtype, seed=args.seed)
+        model = _place(blip2.build_model(cfg, device=device, dtype=dtype, seed=args.seed))
         tok = HashTokenizer(vocab_size=cfg.t5.vocab_size)
         gen = GenerateConfig(max_new_tokens=args.max_new_tokens,
                              num_beams=args.num_beams,
@@ -214,7 +245,7 @@ def _synthetic_eval(args, device: torch.device, dtype: torch.dtype) -> Dict[str,
             "gt_answers": [["yes"] * 10 for _ in range(args.batch_size)],
         } for _ in range(args.eval_batches)]
         # every synthetic task is scored as VQA, as the JAX CLI scores it
-        metrics = runner.evaluate(setup_task("vqa", predict_fn), batches)
+        metrics = runner.evaluate(_task("vqa", predict_fn), batches)
         # the first batch carries the warm-up; the rest are the steady rate
         metrics["batch_walls_s"] = [round(w, 2) for w in batch_walls]
         if len(batch_walls) >= 3:
@@ -236,7 +267,7 @@ def _synthetic_eval(args, device: torch.device, dtype: torch.dtype) -> Dict[str,
             "image": rng.normal(size=(args.batch_size, img, img, 3)).astype(np.float32),
             "label": rng.integers(0, 10, size=(args.batch_size,)),
         } for _ in range(2)]
-        return runner.evaluate(setup_task("multimodal_classification",
+        return runner.evaluate(_task("multimodal_classification",
                                           zero_shot_predict_fn(model, classifier, device)),
                                batches)
 
@@ -249,7 +280,7 @@ def _synthetic_eval(args, device: torch.device, dtype: torch.dtype) -> Dict[str,
         dev = [[f"q{i}", "w", "x", "y", "z", "B"] for i in range(5)]
         test = [[f"t{i}", "w", "x", "y", "z", "ABCD"[rng.integers(0, 4)]]
                 for i in range(8)]
-        task = setup_task("mmlu", mmlu_logits_fn(model, tok, device), abcd,
+        task = _task("mmlu", mmlu_logits_fn(model, tok, device), abcd,
                           token_len_fn=lambda s: len(tok([s], max_length=10_000,
                                                          pad=False)[0][0]),
                           max_tokens=2048)
@@ -268,7 +299,7 @@ def _synthetic_eval(args, device: torch.device, dtype: torch.dtype) -> Dict[str,
             "image": rng.normal(size=(args.batch_size, img, img, 3)).astype(np.float32),
             "label": rng.integers(0, ncls, size=(args.batch_size,)),
         } for _ in range(2)]
-        return runner.evaluate(setup_task("multimodal_classification",
+        return runner.evaluate(_task("multimodal_classification",
                                           classifier_predict_fn(model, device)), batches)
 
     if args.model == "blip2_opt" and args.task == "captioning":
@@ -312,10 +343,9 @@ def _blip2_opt_captioning(args, device, dtype, rng, runner) -> Dict[str, Any]:
     from ecoflap_tpu_torch.data.calibration import HashTokenizer
     from ecoflap_tpu_torch.models import blip2_opt
     from ecoflap_tpu_torch.models.generation import GenerateConfig
-    from ecoflap_tpu_torch.tasks import setup_task
 
     cfg = blip2_opt.config_for_scale(args.model_scale)
-    model = blip2_opt.build_model(cfg, device=device, dtype=dtype, seed=args.seed)
+    model = _place(blip2_opt.build_model(cfg, device=device, dtype=dtype, seed=args.seed))
     tok = HashTokenizer(vocab_size=cfg.opt.vocab_size)
     gen = GenerateConfig(max_new_tokens=args.max_new_tokens, num_beams=args.num_beams,
                          min_length=8, length_penalty=args.length_penalty,
@@ -336,7 +366,7 @@ def _blip2_opt_captioning(args, device, dtype, rng, runner) -> Dict[str, Any]:
         "image_id": list(range(i * n, (i + 1) * n)),
         "gt_captions": [["a photo"] for _ in range(n)],
     } for i in range(args.eval_batches)]
-    return runner.evaluate(setup_task("captioning", gen_fn), batches)
+    return runner.evaluate(_task("captioning", gen_fn), batches)
 
 
 def _blip2_qformer_retrieval(args, device, rng, runner) -> Dict[str, Any]:
@@ -382,7 +412,6 @@ def _blip1_eval(args, device, dtype, rng, runner) -> Dict[str, Any]:
     from ecoflap_tpu_torch.data.calibration import HashTokenizer
     from ecoflap_tpu_torch.models import blip1
     from ecoflap_tpu_torch.models.generation import GenerateConfig
-    from ecoflap_tpu_torch.tasks import setup_task
 
     cfg = blip1.config_for_scale(args.model_scale)
     model = blip1.build_model(cfg, BLIP1_KINDS[args.task], device=device, dtype=dtype,
@@ -411,7 +440,7 @@ def _blip1_eval(args, device, dtype, rng, runner) -> Dict[str, Any]:
             lg = model.itm_logits(dev(ims[img_rows]), dev(ids[txt_rows]), dev(mask[txt_rows]))
             return lg[:, 1].cpu().numpy()
 
-        return runner.evaluate(setup_task("retrieval", sim_fn, itm_match, min(8, n)), {})
+        return runner.evaluate(_task("retrieval", sim_fn, itm_match, min(8, n)), {})
 
     if args.task == "vqa":
         answers = [f"answer {i}" for i in range(16)] + ["yes", "no"]
@@ -429,7 +458,7 @@ def _blip1_eval(args, device, dtype, rng, runner) -> Dict[str, Any]:
         batches = [{"image": images(), "text_input": [f"question {i}" for i in range(n)],
                     "gt_answers": [["yes"] * 10 for _ in range(n)]}
                    for _ in range(args.eval_batches)]
-        return runner.evaluate(setup_task("vqa", predict_fn), batches)
+        return runner.evaluate(_task("vqa", predict_fn), batches)
 
     if args.task == "nlvr":
         @torch.inference_mode()
@@ -443,7 +472,7 @@ def _blip1_eval(args, device, dtype, rng, runner) -> Dict[str, Any]:
                     "text_input": [f"statement {i}" for i in range(n)],
                     "label": rng.integers(0, 2, size=(n,))}
                    for _ in range(args.eval_batches)]
-        return runner.evaluate(setup_task("multimodal_classification", predict_fn), batches)
+        return runner.evaluate(_task("multimodal_classification", predict_fn), batches)
 
     gen = GenerateConfig(max_new_tokens=args.max_new_tokens, num_beams=args.num_beams,
                          min_length=5, length_penalty=args.length_penalty)
@@ -457,7 +486,7 @@ def _blip1_eval(args, device, dtype, rng, runner) -> Dict[str, Any]:
     batches = [{"image": images(), "image_id": list(range(i * n, (i + 1) * n)),
                 "gt_captions": [["a picture"] for _ in range(n)]}
                for i in range(args.eval_batches)]
-    return runner.evaluate(setup_task("captioning", gen_fn), batches)
+    return runner.evaluate(_task("captioning", gen_fn), batches)
 
 
 def mmlu_logits_fn(model, tok, device, max_length: int = 64):
@@ -495,10 +524,11 @@ def _real_eval(args, device: torch.device, dtype: torch.dtype) -> Dict[str, Any]
     from ecoflap_tpu_torch.data import datasets
     from ecoflap_tpu_torch.data.calibration import load_t5_tokenizer
     from ecoflap_tpu_torch.data.processors import ImageEvalProcessor
+    from ecoflap_tpu_torch.parallel.dist import is_main_process
     from ecoflap_tpu_torch.runners.runner import Runner
-    from ecoflap_tpu_torch.tasks import setup_task
 
-    runner = Runner(args.output_dir, f"eval_{args.model}_{args.task}")
+    runner = Runner(args.output_dir, f"eval_{args.model}_{args.task}",
+                    write=is_main_process())
     if args.model in ("clip", "eva_clip") and args.task == "classification":
         return runner.evaluate(*_zero_shot_setup(args, device, dtype))
     if args.model in ("deit", "convnext") and args.task == "classification":
@@ -507,7 +537,7 @@ def _real_eval(args, device: torch.device, dtype: torch.dtype) -> Dict[str, Any]
         ds = registry.get("builder", "imagenet")(
             {"vis_root": args.vis_root},
             vis_processor=ImageEvalProcessor(image_size=model.cfg.img_size))
-        return runner.evaluate(setup_task("multimodal_classification",
+        return runner.evaluate(_task("multimodal_classification",
                                           classifier_predict_fn(model, device)),
                                list(datasets.batch_iterator(ds, args.batch_size,
                                                             drop_last=True)))
@@ -537,10 +567,10 @@ def _real_eval(args, device: torch.device, dtype: torch.dtype) -> Dict[str, Any]
         vis_processor=ImageEvalProcessor(image_size=cfg.vit.img_size))
     batches = list(datasets.batch_iterator(ds, args.batch_size, drop_last=True))
     if args.task == "captioning":
-        task = setup_task(args.task, lambda b: generate(b, [""] * len(b["image"]), 4))
+        task = _task(args.task, lambda b: generate(b, [""] * len(b["image"]), 4))
     else:
         prompt = "Question: {} Short answer:"
-        task = setup_task(args.task, lambda b: generate(
+        task = _task(args.task, lambda b: generate(
             b, [prompt.format(q) for q in b["text_input"]], 32))
     return runner.evaluate(task, batches)
 
@@ -556,7 +586,6 @@ def _zero_shot_setup(args, device, dtype):
     from ecoflap_tpu_torch.data.processors import ImageEvalProcessor
     from ecoflap_tpu_torch.data.prompts import TEMPLATE_SETS, build_prompts
     from ecoflap_tpu_torch.models import clip
-    from ecoflap_tpu_torch.tasks import setup_task
 
     cfg = clip.config_for_scale(args.model_scale, args.model == "eva_clip")
     model = _model(clip, cfg, args, device, dtype)
@@ -573,7 +602,7 @@ def _zero_shot_setup(args, device, dtype):
         prompts, max_length=cfg.text.context_length)
     classifier = model.zero_shot_classifier(torch.from_numpy(ids).to(device),
                                             len(ds.classnames))
-    task = setup_task("multimodal_classification",
+    task = _task("multimodal_classification",
                       zero_shot_predict_fn(model, classifier, device))
     return task, list(datasets.batch_iterator(ds, args.batch_size, drop_last=True))
 
@@ -583,6 +612,10 @@ def main(argv=None) -> Dict[str, Any]:
     from ecoflap_tpu_torch.core.device import (exact_float32_matmuls, resolve_device,
                                                weight_dtype)
     from ecoflap_tpu_torch.core.project import apply_cfg_path
+    from ecoflap_tpu_torch.parallel.dist import (destroy, init_distributed_mode,
+                                                 is_dist_avail_and_initialized,
+                                                 is_main_process, same_on_every_rank)
+    from ecoflap_tpu_torch.parallel.mesh import mesh_from_flag, parse_mesh_spec, use_mesh
 
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -590,16 +623,27 @@ def main(argv=None) -> Dict[str, Any]:
     if not args.model or not args.task:
         parser.error("--model and --task are required (directly or through --cfg-path)")
     device = resolve_device(args.device)
-    # TF32 off: float32 runs compute what the JAX package computes
-    exact_float32_matmuls()
-    # a random init's dtype; a .pth loads in bf16
-    dtype = weight_dtype(args.dtype, args.model_scale)
-    if args.synthetic or not (args.ann or args.vis_root):
-        metrics = _synthetic_eval(args, device, dtype)
-    else:
-        metrics = _real_eval(args, device, dtype)
-    print(json.dumps(metrics))
-    return metrics
+    if args.mesh != "none":  # a bad spec raises before any start-up
+        parse_mesh_spec(args.mesh)
+    # the process group of a torchrun launch, as the JAX CLI starts its own
+    owned = not is_dist_avail_and_initialized() and init_distributed_mode(device)
+    try:
+        # TF32 off: float32 runs compute what the JAX package computes
+        exact_float32_matmuls()
+        # a random init's dtype; a .pth loads in bf16
+        dtype = weight_dtype(args.dtype, args.model_scale)
+        with use_mesh(mesh_from_flag(args.mesh, device)):
+            if args.synthetic or not (args.ann or args.vis_root):
+                metrics = _synthetic_eval(args, device, dtype)
+            else:
+                metrics = _real_eval(args, device, dtype)
+        metrics = same_on_every_rank(metrics)
+        if is_main_process():
+            print(json.dumps(metrics))
+        return metrics
+    finally:
+        if owned:
+            destroy()
 
 
 if __name__ == "__main__":

@@ -96,6 +96,16 @@ and the classifiers have no suffix plans, so every target goes the serial
 way.
 ``--mezo_ensemble 1`` or ``0`` sends every planned model one way.
 
+``--mesh dp=N,tp=M`` runs the whole pipeline over N x M ranks started by
+``torchrun`` (``python -m torch.distributed.run --nproc-per-node N*M -m
+ecoflap_tpu_torch.cli.prune ... --mesh dp=N,tp=M``; NCCL on the card, gloo
+with ``--device cpu``): the weights the tp rules match are split over tp,
+each dp rank calibrates on its slice of every microbatch, and rank 0 alone
+writes the sparsity dict, the statistics, the ``.pth`` (from the gathered
+weights) and the result line. ``--stacks a,b`` prunes only the named stacks
+(the others keep their weights; the coarse stage still scores every
+target, as in the JAX CLI).
+
 Runs on the card unless ``--device cpu``. Without ``--ckpt`` the model is
 randomly initialised from ``--seed`` at ``--model_scale``; calibration is
 synthetic unless said above (the JAX CLI's draws for one seed: LLaMA's token
@@ -202,6 +212,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write the pruned model, float32 under the reference "
                         "names, to pruned_checkpoint/<job>.pth")
     p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--stacks", default=None,
+                   help="comma-separated stack names to prune (others skip)")
+    p.add_argument("--mesh", default=None,
+                   help="run the whole pipeline over a (dp, tp) mesh of torchrun "
+                        "ranks, e.g. 'dp=4' or 'dp=2,tp=2' ('dp': every rank on "
+                        "dp); dp*tp must be the world size")
     return p
 
 
@@ -439,20 +455,20 @@ def main(argv=None) -> Dict[str, Any]:
     and the ``pruner``. With
     ``--coarse_only`` it writes the sparsity dict, prints and returns the
     JAX CLI's short result (job id, wall, dict path) and stops."""
-    from ecoflap_tpu_torch.core.device import (exact_float32_matmuls, resolve_device,
-                                               weight_dtype)
+    from ecoflap_tpu_torch.core.device import resolve_device
     from ecoflap_tpu_torch.core.project import apply_cfg_path
-    from ecoflap_tpu_torch.core.spec import parse_prune_spec
-    from ecoflap_tpu_torch.pruning.loader import load_pruner
-    from ecoflap_tpu_torch.runners.runner import Runner, global_sparsity
-    from ecoflap_tpu_torch.utils.checkpoint import (export_eva_clip_visual,
-                                                    export_state_dict)
+    from ecoflap_tpu_torch.parallel.dist import (destroy, init_distributed_mode,
+                                                 is_dist_avail_and_initialized)
 
     parser = build_parser()
     args = parser.parse_args(argv)
     apply_cfg_path(args, sys.argv[1:] if argv is None else argv, prune=True)
     if not args.model:
         parser.error("--model is required (directly or through --cfg-path)")
+    if args.mesh and args.mesh != "none":  # a bad spec raises before any start-up
+        from ecoflap_tpu_torch.parallel.mesh import parse_mesh_spec
+
+        parse_mesh_spec(args.mesh)
     if args.model not in SETUPS:  # a --cfg-path model outside MODELS
         raise NotImplementedError(
             f"--model {args.model}: the JAX prune CLI has no such model, nor has "
@@ -461,6 +477,27 @@ def main(argv=None) -> Dict[str, Any]:
     if args.sparsity_type != "unstructured" and ":" in args.sparsity_type:
         prune_n, prune_m = map(int, args.sparsity_type.split(":"))
     device = resolve_device(args.device)
+    # under torchrun: the process group, torn down on exit if started here
+    owned = not is_dist_avail_and_initialized() and init_distributed_mode(device)
+    try:
+        return _run(args, device, prune_n, prune_m)
+    finally:
+        if owned:
+            destroy()
+
+
+def _run(args, device, prune_n: int, prune_m: int) -> Dict[str, Any]:
+    from ecoflap_tpu_torch.core.device import exact_float32_matmuls, weight_dtype
+    from ecoflap_tpu_torch.core.spec import parse_prune_spec
+    from ecoflap_tpu_torch.parallel.dist import is_main_process, same_on_every_rank
+    from ecoflap_tpu_torch.parallel.mesh import mesh_from_flag, use_mesh
+    from ecoflap_tpu_torch.parallel.sharding import shard_params, unshard_params
+    from ecoflap_tpu_torch.pruning.loader import load_pruner
+    from ecoflap_tpu_torch.runners.runner import Runner, global_sparsity
+    from ecoflap_tpu_torch.utils.checkpoint import (export_eva_clip_visual,
+                                                    export_state_dict)
+
+    mesh = mesh_from_flag(args.mesh, device)
     # TF32 off for matmuls and convolutions, once, here: float32 runs must
     # compute what the JAX package computes
     exact_float32_matmuls()
@@ -471,11 +508,19 @@ def main(argv=None) -> Dict[str, Any]:
     adapter, batch, num_microbatches, stack_specs = SETUPS[args.model](args, device,
                                                                        dtype)
     batch = {k: t.to(device) for k, t in batch.items()}
+    if mesh is not None:
+        shard_params(adapter.model, mesh)
+    if args.stacks:
+        # explicit None for the stacks not kept: a missing entry would fall
+        # back to --prune_spec and prune them anyway (the JAX cli/prune.py:638-645)
+        keep = set(args.stacks.split(","))
+        stack_specs = {s.name: (stack_specs.get(s.name) if s.name in keep else None)
+                       for s in adapter.stacks}
 
     job_id = args.job_id or (
         f"{args.pruning_method}_{args.prune_spec or 'none'}"
         f"_{args.score_method}_{args.sparsity_ratio_granularity}")
-    runner = Runner(args.output_dir, job_id)
+    runner = Runner(args.output_dir, job_id, write=is_main_process())
     if args.is_global:
         # the global pruners' own configuration (cli/prune.py:674-680): no
         # --num_samples, so they score the first 64 samples
@@ -509,17 +554,20 @@ def main(argv=None) -> Dict[str, Any]:
     if args.coarse_only:
         specs = [s for s in stack_specs.values() if s]
         ratio = parse_prune_spec(specs[0] if specs else args.prune_spec).sparsity
-        with torch.no_grad():
+        with torch.no_grad(), use_mesh(mesh):
             sdict = pruner.get_sparsity(ratio, args.sparsity_ratio_granularity)
-        result = {
+        result = same_on_every_rank({
             "job_id": job_id,
             "wall_clock_s": round(time.time() - t0, 1),
             "sparsity_dict": runner.save_sparsity_dict(sdict),
-        }
-        print(json.dumps(result))
+        })
+        if runner.write:
+            print(json.dumps(result))
         return result
-    with torch.no_grad():
+    with torch.no_grad(), use_mesh(mesh):
         model, sparsity_dict = pruner.prune()
+    if mesh is not None:
+        unshard_params(model)  # every rank: the whole pruned weights
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.time() - t0
@@ -543,7 +591,9 @@ def main(argv=None) -> Dict[str, Any]:
         export = export_eva_clip_visual if args.model == "eva_clip" else export_state_dict
         result["pth"] = runner.save_pruned_torch(export(model), job_id)
         result["pth_write_s"] = time.time() - ts
-    print(json.dumps(result))
+    result = same_on_every_rank(result)
+    if runner.write:
+        print(json.dumps(result))
     return {**result, "leaf_scores": dict(pruner.leaf_scores), "model": model,
             "pruner": pruner}
 

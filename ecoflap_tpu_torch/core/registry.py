@@ -1,5 +1,6 @@
-"""Name -> class registry for pruners, tasks and dataset builders (the
-reference's ``registry``, LAVIS/lavis/common/registry.py). The port keeps
+"""Name -> class registry for models, pruners, tasks, dataset builders,
+processors, LR schedules and runners (the reference's ``registry``,
+LAVIS/lavis/common/registry.py). The port keeps
 its own instance, so its names never collide with the JAX package's
 registrations when both are loaded in one process."""
 
@@ -9,7 +10,8 @@ from typing import Any, Dict
 
 
 class Registry:
-    _KINDS = ("pruner", "task", "builder")
+    _KINDS = ("model", "pruner", "task", "builder", "processor", "lr_scheduler",
+              "runner")
 
     def __init__(self) -> None:
         self._maps: Dict[str, Dict[str, Any]] = {k: {} for k in self._KINDS}
@@ -33,8 +35,20 @@ class Registry:
             raise KeyError(f"{kind} {name!r} not registered; known: {known}")
         return self._maps[kind][name]
 
+    def list(self, kind: str) -> list:
+        return sorted(self._maps[kind])
+
+    def get_model_class(self, name: str) -> Any:
+        return self.get("model", name)
+
     def get_pruner_class(self, name: str) -> Any:
         return self.get("pruner", name)
+
+    def get_processor_class(self, name: str) -> Any:
+        return self.get("processor", name)
+
+    def get_lr_scheduler_class(self, name: str) -> Any:
+        return self.get("lr_scheduler", name)
 
 
 registry = Registry()

@@ -24,7 +24,7 @@ from ecoflap_tpu_torch.models import eva_vit, qformer
 from ecoflap_tpu_torch.models import t5 as t5_mod
 from ecoflap_tpu_torch.models.eva_vit import normal_
 from ecoflap_tpu_torch.models.generation import GenerateConfig, t5_generate
-from ecoflap_tpu_torch.models.layers import layer_norm, rms_norm
+from ecoflap_tpu_torch.models.layers import embedding, layer_norm, rms_norm
 from ecoflap_tpu_torch.pruning.adapter import ModelAdapter, StackSpec
 
 
@@ -82,7 +82,7 @@ class Blip2T5(nn.Module):
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """[query embeds ; text embeds] and the fused attention mask."""
         q = self.project_features(self.visual_encoder.forward_features(images))
-        text = self.t5_model.shared(text_ids).to(q.dtype)
+        text = embedding(text_ids, self.t5_model.shared).to(q.dtype)
         q_mask = torch.ones(q.shape[:2], dtype=text_mask.dtype, device=q.device)
         return torch.cat([q, text], dim=1), torch.cat([q_mask, text_mask], dim=1)
 
@@ -188,7 +188,7 @@ def make_adapter(model: Blip2T5) -> ModelAdapter:
 
         def vit_finish(mm, y, d):
             q = mm.project_features(y)
-            text = mm.t5_model.shared(d["text_input_ids"])
+            text = embedding(d["text_input_ids"], mm.t5_model.shared)
             x = torch.cat([q.to(text.dtype), text], dim=1)
             q_mask = torch.ones(q.shape[:2], dtype=d["text_input_mask"].dtype,
                                 device=q.device)

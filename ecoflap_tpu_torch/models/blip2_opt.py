@@ -29,7 +29,7 @@ from ecoflap_tpu_torch.models import eva_vit, qformer
 from ecoflap_tpu_torch.models import opt as opt_mod
 from ecoflap_tpu_torch.models.eva_vit import normal_
 from ecoflap_tpu_torch.models.generation import GenerateConfig
-from ecoflap_tpu_torch.models.layers import layer_norm
+from ecoflap_tpu_torch.models.layers import embedding, layer_norm
 from ecoflap_tpu_torch.pruning.adapter import LossPlan, ModelAdapter, StackSpec
 
 
@@ -85,7 +85,7 @@ class Blip2OPT(nn.Module):
         the queries take positions 0..nq-1 and the text's positions restart
         at 0."""
         opt = self.opt_model
-        text = opt.decoder.embed_tokens(text_ids)
+        text = embedding(text_ids, opt.decoder.embed_tokens)
         text = text + opt.position_embeds(opt_mod.positions_of(text_mask), text.dtype)
         nq = query_embeds.shape[1]
         qpos = torch.arange(nq, device=query_embeds.device)[None]

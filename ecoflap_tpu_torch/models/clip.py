@@ -45,6 +45,7 @@ from ecoflap_tpu_torch.models.layers import (
     attention,
     collect_stats,
     dense,
+    embedding,
     extract_patches,
     gelu,
     layer_norm,
@@ -318,7 +319,7 @@ class CLIP(nn.Module):
         return self.visual(images)
 
     def text_embed(self, ids: torch.Tensor) -> torch.Tensor:
-        x = self.token_embedding(ids)
+        x = embedding(ids, self.token_embedding)
         return x + self.positional_embedding[: x.shape[1]].to(x.dtype)
 
     def encode_text(self, ids: torch.Tensor) -> torch.Tensor:

@@ -27,8 +27,10 @@ from ecoflap_tpu_torch.models.layers import (
     collect_stats,
     dense,
     extract_patches,
+    full_param,
     gelu,
     layer_norm,
+    linear,
 )
 
 # prunable linears per block, reference-local names (wanda_pruner.py:499-568)
@@ -106,7 +108,8 @@ class Attention(nn.Module):
         (eva_vit.py:123-128)."""
         if self.qkv.bias is not None:
             return self.qkv.bias
-        return torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
+        q_bias, v_bias = full_param(self, "q_bias"), full_param(self, "v_bias")
+        return torch.cat([q_bias, torch.zeros_like(q_bias), v_bias])
 
 
 class Mlp(nn.Module):
@@ -135,7 +138,7 @@ class Block(nn.Module):
         stats: Dict[str, torch.Tensor] = {}
         h = layer_norm(x, self.norm1.weight, self.norm1.bias, cfg.ln_eps)
         collect_stats(stats, "attn.qkv", h, collect)
-        q, k, v = F.linear(h, a.qkv.weight, a.qkv_bias()).chunk(3, dim=-1)
+        q, k, v = linear(h, a.qkv, a.qkv_bias()).chunk(3, dim=-1)
         o = attention(q, k, v, cfg.num_heads)
         x = x + dense(a.proj, o, name="attn.proj", stats=stats, collect=collect)
         h = layer_norm(x, self.norm2.weight, self.norm2.bias, cfg.ln_eps)
@@ -161,7 +164,7 @@ class EvaViT(nn.Module):
         position embedding, in the tower's weight dtype."""
         w = self.patch_embed.proj.weight
         patches = extract_patches(images.to(w.dtype), self.cfg.patch_size)
-        x = F.linear(patches, w.reshape(w.shape[0], -1), self.patch_embed.proj.bias)
+        x = linear(patches, self.patch_embed.proj, weight=w.reshape(w.shape[0], -1))
         cls = self.cls_token.to(x.dtype).expand(x.shape[0], 1, x.shape[-1])
         return torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
 

@@ -46,8 +46,10 @@ from ecoflap_tpu_torch.models import t5 as t5_mod
 from ecoflap_tpu_torch.models.bert import make_cache as bert_cache_biases
 from ecoflap_tpu_torch.models.layers import (
     attention,
+    embedding,
     layer_norm,
-    logits_f32,
+    linear,
+    linear_f32,
     mask_bias,
     rms_norm,
 )
@@ -279,8 +281,8 @@ def t5_init_cache(model: t5_mod.T5Model, enc_out: torch.Tensor, enc_mask: torch.
     for blk in model.decoder.block:
         att = blk.layer[1].EncDecAttention
         cross.append(torch.stack([
-            F.linear(enc_out, w).reshape(b, senc, h, dh).transpose(1, 2)
-            for w in (att.k.weight, att.v.weight)]))
+            linear(enc_out, lin).reshape(b, senc, h, dh).transpose(1, 2)
+            for lin in (att.k, att.v)]))
     self_kv = torch.zeros((cfg.num_decoder_layers, 2, b * num_beams, h, max_new_tokens, dh),
                           dtype=torch.float32, device=enc_out.device)
     return T5Cache(self_kv, torch.stack(cross).to(torch.float32), mask_bias(enc_mask))
@@ -300,36 +302,35 @@ def make_t5_step_fn(model: t5_mod.T5Model, max_new_tokens: int,
     # keys 0..pos alone
     full_bias = t5_mod.position_bias(cfg, dec.rel_bias, max_new_tokens,
                                      max_new_tokens, False)[0]
-    lm_head = model.lm_head.weight
 
     def step_fn(tok: torch.Tensor, pos: int, cache: T5Cache):
-        x = model.shared(tok)[:, None, :]  # (rows, 1, D)
+        x = embedding(tok, model.shared)[:, None, :]  # (rows, 1, D)
         self_bias = full_bias[None, :, pos:pos + 1, :pos + 1]  # (1, H, 1, pos + 1)
         for layer, blk in enumerate(dec.block):
             sa, ca, ff = blk.layer
             att = sa.SelfAttention
             h = rms_norm(x, sa.layer_norm.weight, eps)
-            q = F.linear(h, att.q.weight)
+            q = linear(h, att.q)
             kv = cache.self_kv[layer]
-            for i, w in enumerate((att.k.weight, att.v.weight)):
-                kv[i, :, :, pos] = F.linear(h, w).reshape(kv.shape[1], cfg.num_heads, -1)
+            for i, lin in enumerate((att.k, att.v)):
+                kv[i, :, :, pos] = linear(h, lin).reshape(kv.shape[1], cfg.num_heads, -1)
             o = _cached_attention(q, kv[0, :, :, :pos + 1], kv[1, :, :, :pos + 1],
                                   self_bias, 1)
-            x = x + F.linear(o, att.o.weight)
+            x = x + linear(o, att.o)
 
             att = ca.EncDecAttention
             h = rms_norm(x, ca.layer_norm.weight, eps)
             ckv = cache.cross_kv[layer]
-            o = _cached_attention(F.linear(h, att.q.weight), ckv[0], ckv[1],
+            o = _cached_attention(linear(h, att.q), ckv[0], ckv[1],
                                   cache.cross_bias, nb)
-            x = x + F.linear(o, att.o.weight)
+            x = x + linear(o, att.o)
 
             mlp = ff.DenseReluDense
             h = rms_norm(x, ff.layer_norm.weight, eps)
-            hh = F.gelu(F.linear(h, mlp.wi_0.weight)) * F.linear(h, mlp.wi_1.weight)
-            x = x + F.linear(hh, mlp.wo.weight)
+            hh = F.gelu(linear(h, mlp.wi_0)) * linear(h, mlp.wi_1)
+            x = x + linear(hh, mlp.wo)
         x = rms_norm(x, dec.final_layer_norm.weight, eps)
-        return logits_f32(x[:, 0], lm_head), cache
+        return linear_f32(x[:, 0], model.lm_head), cache
 
     return step_fn
 

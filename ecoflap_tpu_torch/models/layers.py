@@ -6,6 +6,25 @@ through ``dense(..., name=, stats=, collect=)``, which folds the Wanda
 statistic (sum of x^2 per input column, float32) or the SparseGPT Gram
 matrix X^T X into ``stats`` while computing the product -- the inline
 replacement for the reference's forward hooks.
+
+Every product with a weight that the tensor-parallel rules match goes
+through ``linear`` (or ``linear_f32`` for float32 logits, ``embedding`` for
+a lookup). Outside a mesh they are ``F.linear`` / ``logits_f32`` /
+``F.embedding`` exactly. On a weight that ``parallel.sharding.shard_params``
+split over tp, activations stay whole on every rank:
+
+* column-parallel (out dim sharded): the local product with this rank's
+  slice of the bias, then an all-gather along the last dim;
+* row-parallel (in dim sharded): this rank's slice of ``x``'s last dim,
+  the local product with float32 output, an all-reduce in float32, then
+  the bias, and one rounding to ``x``'s dtype (bf16 partials rounded before
+  the sum would round tp times);
+* a lookup in a table sharded along ``d``: the local lookup, all-gathered.
+
+The collectives carry Megatron's conjugate backwards (``parallel.mesh``):
+gather -> slice, slice -> gather, all-reduce -> identity, and the
+replicated input of a column-parallel product takes the all-reduce of the
+ranks' partial gradients.
 """
 
 from __future__ import annotations
@@ -16,6 +35,15 @@ import torch
 import torch.nn.functional as F
 
 from ecoflap_tpu_torch.ops.attention import mha
+from ecoflap_tpu_torch.parallel.mesh import (
+    copy_reduce,
+    gather_reduce_slice,
+    gather_slice,
+    rank_slice,
+    reduce_copy,
+    slice_gather,
+)
+from ecoflap_tpu_torch.parallel.sharding import shard_of
 
 Stats = Optional[Dict[str, torch.Tensor]]
 
@@ -39,12 +67,85 @@ def collect_stats(stats: Stats, name: Union[str, Sequence[str]],
         stats[n] = stats[n] + contrib if n in stats else contrib
 
 
+_UNSET = object()
+
+
+def linear(x: torch.Tensor, module: torch.nn.Module, bias=_UNSET, *,
+           weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y = x W^T + b in the activation dtype, W = ``module.weight``
+    (``weight``, when given, is that parameter reshaped to 2-D, e.g. a patch
+    embedding's kernel), b = ``module.bias`` unless ``bias`` is given (the
+    whole vector). Joins the ranks' products when W is sharded over tp."""
+    w = module.weight if weight is None else weight
+    b = getattr(module, "bias", None) if bias is _UNSET else bias
+    sh = shard_of(module)
+    if sh is None:
+        return F.linear(x, w, b)
+    if sh.dim == 0:  # column-parallel
+        b = None if b is None else rank_slice(b, 0, sh.rank, sh.size)
+        y = F.linear(copy_reduce(x, sh.group), w, b)
+        return gather_slice(y, -1, sh.group, sh.size, sh.rank)
+    xs = slice_gather(x, -1, sh.group, sh.size, sh.rank)  # row-parallel
+    # float32 partials; a shard being trained takes the widened product,
+    # whose autograd gives its gradient (Bf16LogitsF32 gives none)
+    part = (F.linear(xs.to(torch.float32), w.to(torch.float32)) if w.requires_grad
+            else logits_f32(xs, w))
+    y = reduce_copy(part, sh.group)
+    if b is not None:
+        y = y + b.to(torch.float32)
+    return y.to(x.dtype)
+
+
+def linear_f32(x: torch.Tensor, module: torch.nn.Module, *,
+               widen: bool = False) -> torch.Tensor:
+    """float32 x W^T (logits), W = ``module.weight``: ``logits_f32``, or with
+    ``widen`` both operands widened to float32 first; over tp the local
+    float32 products are gathered (W's out dim sharded) or summed (its in
+    dim)."""
+    w = module.weight
+    sh = shard_of(module)
+
+    def local(xx):
+        if widen:
+            return F.linear(xx.to(torch.float32), w.to(torch.float32))
+        return logits_f32(xx, w)
+
+    if sh is None:
+        return local(x)
+    if sh.dim == 0:
+        return gather_slice(local(copy_reduce(x, sh.group)), -1, sh.group, sh.size,
+                            sh.rank)
+    return reduce_copy(local(slice_gather(x, -1, sh.group, sh.size, sh.rank)),
+                       sh.group)
+
+
+def embedding(ids: torch.Tensor, module: torch.nn.Embedding) -> torch.Tensor:
+    """``module(ids)``; a table sharded along ``d`` looks up its slice and
+    gathers the rows along the last dim."""
+    sh = shard_of(module)
+    if sh is None:
+        return module(ids)
+    return gather_slice(F.embedding(ids, module.weight), -1, sh.group, sh.size,
+                        sh.rank)
+
+
+def full_param(module: torch.nn.Module, pname: str) -> torch.Tensor:
+    """``module.<pname>`` whole: gathered over tp when it is sharded
+    (differentiable: each rank's slice takes the ranks' summed gradient)."""
+    p = getattr(module, pname)
+    sh = shard_of(module, pname)
+    if sh is None:
+        return p
+    return gather_reduce_slice(p, sh.dim, sh.group, sh.size, sh.rank)
+
+
 def dense(lin: torch.nn.Linear, x: torch.Tensor, *, name: str = "",
           stats: Stats = None, collect: Optional[str] = None) -> torch.Tensor:
     """y = x W^T + b in the activation dtype: the bias joins the float32
-    accumulator before the one rounding (layers.py:51-54)."""
+    accumulator before the one rounding (layers.py:51-54). The statistic
+    reads the whole input, on every tp rank alike."""
     collect_stats(stats, name, x, collect)
-    return F.linear(x, lin.weight, lin.bias)
+    return linear(x, lin)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor,

@@ -32,8 +32,16 @@ from torch import nn
 
 from ecoflap_tpu_torch.core.device import resolve_device
 from ecoflap_tpu_torch.models.eva_vit import normal_
-from ecoflap_tpu_torch.models.layers import collect_stats, logits_f32, mask_bias, rms_norm
+from ecoflap_tpu_torch.models.layers import (
+    collect_stats,
+    embedding,
+    linear,
+    linear_f32,
+    mask_bias,
+    rms_norm,
+)
 from ecoflap_tpu_torch.ops.attention import mha
+from ecoflap_tpu_torch.parallel.mesh import dp_size, dp_slice, dp_split, dp_sum_
 from ecoflap_tpu_torch.pruning.adapter import ModelAdapter, StackSpec
 
 LINEAR_NAMES = (
@@ -175,9 +183,9 @@ class LlamaBlock(nn.Module):
         h = self.input_layernorm(x)
         collect_stats(stats, ("self_attn.q_proj", "self_attn.k_proj",
                               "self_attn.v_proj"), h, collect)
-        qh = F.linear(h, attn.q_proj.weight).view(b, s, h_n, dh).transpose(1, 2)
-        kh = F.linear(h, attn.k_proj.weight).view(b, s, kv_n, dh).transpose(1, 2)
-        vh = F.linear(h, attn.v_proj.weight).view(b, s, kv_n, dh).transpose(1, 2)
+        qh = linear(h, attn.q_proj).view(b, s, h_n, dh).transpose(1, 2)
+        kh = linear(h, attn.k_proj).view(b, s, kv_n, dh).transpose(1, 2)
+        vh = linear(h, attn.v_proj).view(b, s, kv_n, dh).transpose(1, 2)
         qh = apply_rope(qh, cos, sin)
         kh = apply_rope(kh, cos, sin)
         if kv_n != h_n:  # grouped-query attention
@@ -188,13 +196,13 @@ class LlamaBlock(nn.Module):
         o = mha(qh, kh, vh, sm_scale=dh ** -0.5, bias=bias, causal=bias is None)
         o = o.transpose(1, 2).reshape(b, s, h_n * dh).to(x.dtype)
         collect_stats(stats, "self_attn.o_proj", o, collect)
-        x = x + F.linear(o, attn.o_proj.weight)
+        x = x + linear(o, attn.o_proj)
 
         h = self.post_attention_layernorm(x)
         collect_stats(stats, ("mlp.gate_proj", "mlp.up_proj"), h, collect)
-        hh = F.silu(F.linear(h, mlp.gate_proj.weight)) * F.linear(h, mlp.up_proj.weight)
+        hh = F.silu(linear(h, mlp.gate_proj)) * linear(h, mlp.up_proj)
         collect_stats(stats, "mlp.down_proj", hh, collect)
-        return x + F.linear(hh, mlp.down_proj.weight), stats
+        return x + linear(hh, mlp.down_proj), stats
 
 
 class LlamaModel(nn.Module):
@@ -243,11 +251,11 @@ class LlamaForCausalLM(nn.Module):
     def forward(self, input_ids: torch.Tensor,
                 attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, S) ids -> (B, S, V) float32 logits."""
-        x = self.model.embed_tokens(input_ids)
+        x = embedding(input_ids, self.model.embed_tokens)
         cache = self.prepare_cache(attn_mask, x.shape[1], x.device)
         for blk in self.model.layers:
             x, _ = blk(x, cache)
-        return logits_f32(self.model.norm(x), self.lm_head.weight)
+        return linear_f32(self.model.norm(x), self.lm_head)
 
     def per_sample_loss(self, input_ids: torch.Tensor,
                         attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -257,7 +265,7 @@ class LlamaForCausalLM(nn.Module):
                          attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """per_sample_loss from the layer stack's output: the suffix-plan
         finish (llama.py:272-285)."""
-        logits = logits_f32(self.model.norm(x), self.lm_head.weight)
+        logits = linear_f32(self.model.norm(x), self.lm_head)
         return next_token_ce(logits, input_ids, attn_mask)
 
     @torch.no_grad()
@@ -282,13 +290,28 @@ class LlamaForCausalLM(nn.Module):
 def perplexity(model: LlamaForCausalLM, token_stream: torch.Tensor,
                seqlen: int = 2048, batch_size: int = 1) -> float:
     """WikiText-2-style perplexity: non-overlapping windows of ``seqlen``
-    over one token stream, token-weighted mean NLL (llama.py:288-301)."""
+    over one token stream, token-weighted mean NLL (llama.py:288-301).
+    Under a mesh each dp rank takes its slice of every batch of windows, and
+    the NLL sums and token counts are all-reduced over dp (a batch that dp
+    does not divide is evaluated whole on every rank and not reduced)."""
     n = token_stream.shape[0] // seqlen
     windows = token_stream[: n * seqlen].reshape(n, seqlen)
-    total = 0.0
+    nll, tokens = 0.0, 0
+    cut = torch.zeros(2, dtype=torch.float64, device=token_stream.device)
     for i in range(0, n, batch_size):
-        total += float(model.per_sample_loss(windows[i:i + batch_size]).sum()) * seqlen
-    return math.exp(total / (n * seqlen))
+        w = windows[i:i + batch_size]
+        local = dp_slice(w, w.shape[0])
+        s = float(model.per_sample_loss(local).sum()) * seqlen
+        if dp_split(w.shape[0]):  # (NLL sum, token count) of this rank's slice
+            cut += torch.tensor([s, local.shape[0] * seqlen], dtype=torch.float64,
+                                device=cut.device)
+        else:
+            nll += s
+            tokens += w.shape[0] * seqlen
+    if dp_size() > 1:
+        cut_nll, cut_tokens = dp_sum_(cut).tolist()
+        nll, tokens = nll + cut_nll, tokens + int(cut_tokens)
+    return math.exp(nll / tokens)
 
 
 def config_for_scale(scale: str) -> LlamaConfig:
@@ -326,7 +349,7 @@ def make_adapter(model: LlamaForCausalLM) -> ModelAdapter:
     cfg = model.cfg
 
     def prepare_inputs(m, batch):
-        x = m.model.embed_tokens(batch["input_ids"])
+        x = embedding(batch["input_ids"], m.model.embed_tokens)
         return x, m.prepare_cache(batch.get("attn_mask"), x.shape[1], x.device)
 
     def block_forward(block, x, cache, collect=None):

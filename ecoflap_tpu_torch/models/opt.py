@@ -42,8 +42,10 @@ from ecoflap_tpu_torch.models.layers import (
     attention,
     collect_stats,
     dense,
+    embedding,
     layer_norm,
-    logits_f32,
+    linear,
+    linear_f32,
     mask_bias,
 )
 from ecoflap_tpu_torch.pruning.adapter import ModelAdapter, StackSpec
@@ -126,9 +128,7 @@ class OPTDecoderLayer(nn.Module):
         h = layer_norm(x, ln.weight, ln.bias, self.cfg.ln_eps)
         collect_stats(stats, ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
                       h, collect)
-        return (F.linear(h, a.q_proj.weight, a.q_proj.bias),
-                F.linear(h, a.k_proj.weight, a.k_proj.bias),
-                F.linear(h, a.v_proj.weight, a.v_proj.bias))
+        return linear(h, a.q_proj), linear(h, a.k_proj), linear(h, a.v_proj)
 
     def rest(self, x: torch.Tensor, o: torch.Tensor, stats=None,
              collect: Optional[str] = None) -> torch.Tensor:
@@ -194,7 +194,7 @@ class OPTForCausalLM(nn.Module):
     def embed(self, ids: torch.Tensor, attn_mask: Optional[torch.Tensor] = None
               ) -> torch.Tensor:
         """Token plus position embeddings (opt.py:135-144)."""
-        x = self.decoder.embed_tokens(ids)
+        x = embedding(ids, self.decoder.embed_tokens)
         positions = (torch.arange(ids.shape[1], device=ids.device)[None]
                      if attn_mask is None else positions_of(attn_mask))
         return x + self.position_embeds(positions, x.dtype)
@@ -203,7 +203,7 @@ class OPTForCausalLM(nn.Module):
         """The final LayerNorm and the tied head: float32 logits."""
         ln = self.decoder.final_layer_norm
         x = layer_norm(x, ln.weight, ln.bias, self.cfg.ln_eps)
-        return logits_f32(x, self.decoder.embed_tokens.weight)
+        return linear_f32(x, self.decoder.embed_tokens)
 
     def forward_embeds(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
         for layer in self.decoder.layers:
@@ -330,9 +330,8 @@ def make_opt_step_fn(model: OPTForCausalLM, prefix_len: int, pos0: int,
     slots = torch.arange(prefix_len + max_new_tokens, device=dec.embed_tokens.weight.device)
 
     def step_fn(tok: torch.Tensor, pos: int, cache: OPTCache):
-        w = dec.embed_tokens.weight
-        x = w[tok][:, None, :] + dec.embed_positions.weight[pos0 + pos + 2][None, None].to(
-            w.dtype)
+        x = embedding(tok, dec.embed_tokens)[:, None, :]
+        x = x + dec.embed_positions.weight[pos0 + pos + 2][None, None].to(x.dtype)
         write = prefix_len + pos
         valid = (cache.key_mask > 0) | ((slots >= prefix_len) & (slots <= write))[None]
         bias = torch.where(valid, 0.0, -1e9).to(torch.float32)[:, None, None, :]

@@ -25,7 +25,14 @@ from torch import nn
 
 from ecoflap_tpu_torch.core.device import resolve_device
 from ecoflap_tpu_torch.models.eva_vit import normal_
-from ecoflap_tpu_torch.models.layers import collect_stats, mask_bias, rms_norm
+from ecoflap_tpu_torch.models.layers import (
+    collect_stats,
+    embedding,
+    linear,
+    linear_f32,
+    mask_bias,
+    rms_norm,
+)
 from ecoflap_tpu_torch.pruning.adapter import ModelAdapter, StackSpec
 
 ENCODER_LINEARS = (
@@ -75,6 +82,10 @@ class T5Config:
 
 def flan_t5_xl() -> T5Config:
     return T5Config()
+
+
+def flan_t5_xxl() -> T5Config:
+    return T5Config(d_model=4096, d_ff=10240, num_heads=64)
 
 
 def flan_t5_base() -> T5Config:
@@ -156,14 +167,14 @@ class T5Attention(nn.Module):
         b, sq, _ = x.shape
         sk = kv.shape[1]
         h = cfg.num_heads
-        qh = F.linear(x, self.q.weight).reshape(b, sq, h, -1).transpose(1, 2)
-        kh = F.linear(kv, self.k.weight).reshape(b, sk, h, -1).transpose(1, 2)
-        vh = F.linear(kv, self.v.weight).reshape(b, sk, h, -1).transpose(1, 2)
+        qh = linear(x, self.q).reshape(b, sq, h, -1).transpose(1, 2)
+        kh = linear(kv, self.k).reshape(b, sk, h, -1).transpose(1, 2)
+        vh = linear(kv, self.v).reshape(b, sk, h, -1).transpose(1, 2)
         scores = torch.matmul(qh, kh.transpose(-1, -2)) + bias.to(x.dtype)
         probs = torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype)
         o = torch.matmul(probs, vh).transpose(1, 2).reshape(b, sq, -1)
         collect_stats(stats, f"{prefix}.o", o, collect)
-        return F.linear(o, self.o.weight)
+        return linear(o, self.o)
 
 
 class T5DenseGatedActDense(nn.Module):
@@ -175,9 +186,9 @@ class T5DenseGatedActDense(nn.Module):
 
     def forward(self, x, stats, prefix, collect):
         collect_stats(stats, (f"{prefix}.wi_0", f"{prefix}.wi_1"), x, collect)
-        h = F.gelu(F.linear(x, self.wi_0.weight)) * F.linear(x, self.wi_1.weight)
+        h = F.gelu(linear(x, self.wi_0)) * linear(x, self.wi_1)
         collect_stats(stats, f"{prefix}.wo", h, collect)
-        return F.linear(h, self.wo.weight)
+        return linear(h, self.wo)
 
 
 class T5LayerSelfAttention(nn.Module):
@@ -283,7 +294,7 @@ class T5Model(nn.Module):
         return rms_norm(x, self.encoder.final_layer_norm.weight, self.cfg.ln_eps)
 
     def encode(self, input_ids: torch.Tensor, attn_mask: torch.Tensor) -> torch.Tensor:
-        return self.encode_embeds(self.shared(input_ids), attn_mask)
+        return self.encode_embeds(embedding(input_ids, self.shared), attn_mask)
 
     def decode(self, enc_out: torch.Tensor, enc_mask: torch.Tensor,
                decoder_input_ids: torch.Tensor,
@@ -291,7 +302,7 @@ class T5Model(nn.Module):
         """Teacher-forced decoder -> (B, S, V) float32 logits (t5.py:387-409)."""
         if decoder_mask is None:
             decoder_mask = torch.ones_like(decoder_input_ids)
-        x = self.shared(decoder_input_ids)
+        x = embedding(decoder_input_ids, self.shared)
         self_bias, cross_bias = self.decoder_biases(decoder_mask, enc_mask, x.shape[1])
         for blk in self.decoder.block:
             x, _ = blk(x, (self_bias, cross_bias, enc_out))
@@ -302,7 +313,7 @@ class T5Model(nn.Module):
         """(x, (self_bias, cross_bias, enc_out)) for the decoder blocks, with
         the all-ones decoder key mask of HF's ``decoder_attention_mask=None``."""
         dec_in = shift_right(self.cfg, labels)
-        x = self.shared(dec_in)
+        x = embedding(dec_in, self.shared)
         self_bias, cross_bias = self.decoder_biases(
             torch.ones_like(dec_in), enc_mask, x.shape[1])
         return x, (self_bias, cross_bias, enc_out)
@@ -313,7 +324,7 @@ class T5Model(nn.Module):
         summed in float32, never rounded to the weight dtype)."""
         x = rms_norm(dec_hidden, self.decoder.final_layer_norm.weight,
                      self.cfg.ln_eps)
-        return F.linear(x.to(torch.float32), self.lm_head.weight.to(torch.float32))
+        return linear_f32(x, self.lm_head, widen=True)
 
     def loss_from_dec_hidden(self, x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         return ce_per_sample(self.logits(x), labels)

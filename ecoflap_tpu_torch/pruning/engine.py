@@ -25,10 +25,17 @@ the finished sum once to bf16; the sweep widens it back to float32.
 SparseGPT sweeps a block's same-shape linears together
 (``sparsegpt_prune_weight_group``; T5's q/k/v/o and wi_0/wi_1) unless
 ``sparsegpt_group=False``, the JAX package's ``ECOFLAP_SPARSEGPT_GROUP=0``.
+
+Under a mesh (``parallel.mesh.use_mesh``) each dp rank streams its slice
+of the batch and the raw sums are all-reduced over dp once per block,
+before any mask is chosen; every tp rank then reads the whole weight
+through ``parallel.sharding.full_weight``, computes the same mask or sweep
+from the same sums, and keeps its slice (``set_full_weight``).
 """
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Any, Callable, Dict, List, Mapping, Optional
 
@@ -36,8 +43,11 @@ import torch
 from torch import nn
 
 from ecoflap_tpu_torch.core.device import synchronize
+from ecoflap_tpu_torch.parallel.mesh import dp_size, dp_slice, dp_split, dp_sum_
+from ecoflap_tpu_torch.parallel.sharding import full_shape, full_weight, set_full_weight
 from ecoflap_tpu_torch.pruning.adapter import StackSpec
 from ecoflap_tpu_torch.pruning.mezo import slice_microbatch
+from ecoflap_tpu_torch.pruning.plans import leading_dim
 from ecoflap_tpu_torch.pruning.sparsegpt import (
     sparsegpt_prune_weight,
     sparsegpt_prune_weight_group,
@@ -91,16 +101,16 @@ def make_sparsegpt_prune_fns(blocksize: int = 128, percdamp: float = 0.01,
 
 
 def shape_groups(block: nn.Module, linear_names) -> List[List[str]]:
-    """The block's linears grouped by weight shape over distinct weights, in
-    first-seen order (engine.py:282-296)."""
+    """The block's linears grouped by (whole) weight shape over distinct
+    weights, in first-seen order (engine.py:282-296)."""
     groups: Dict[Any, List[str]] = {}
     seen = set()
     for local in linear_names:
-        w = block.get_submodule(local).weight
-        if id(w) in seen:
+        lin = block.get_submodule(local)
+        if id(lin.weight) in seen:
             continue
-        seen.add(id(w))
-        groups.setdefault(tuple(w.shape), []).append(local)
+        seen.add(id(lin.weight))
+        groups.setdefault(full_shape(lin), []).append(local)
     return list(groups.values())
 
 
@@ -143,11 +153,16 @@ def stream_prune_stack(
     else:
         prune_mask = make_wanda_prune_fn(stack.per_row_mask, prune_n, prune_m)
     t0 = time.time()
+    total = leading_dim(batch)
+    split = dp_split(total)  # this rank streams its dp slice
+    if split:
+        batch = dp_slice(batch, total)
+        num_chunks = math.gcd(num_chunks, total // dp_size())
     x, cache = stack.prepare_inputs(model, batch)
     # a private contiguous copy: the passes below overwrite it slice by slice
     x = x.clone(memory_format=torch.contiguous_format)
     n = x.shape[0]
-    n_seq = float(n)
+    n_seq = float(n * dp_size() if split else n)
     if n % num_chunks:
         raise ValueError(f"{num_chunks} chunks do not divide the batch of {n}")
     # views into x: each pass overwrites a slice with that slice's output,
@@ -175,6 +190,9 @@ def stream_prune_stack(
         for xc, cc in slices:
             _, part = stack.block_forward(block, xc, cc, collect)
             stats = {k: stats[k] + v if k in stats else v for k, v in part.items()}
+        if split:  # linears that read one input share one tensor: reduce it once
+            for v in {id(v): v for v in stats.values()}.values():
+                dp_sum_(v)
         if out_bf16:
             stats = {k: v.to(torch.bfloat16) for k, v in stats.items()}
         ts = mark("collect_s", ts)
@@ -184,13 +202,16 @@ def stream_prune_stack(
 
         if not sparsegpt:
             for local in stack.linear_names:
-                w = block.get_submodule(local).weight
+                lin = block.get_submodule(local)
+                w = full_weight(lin)
                 apply_mask(w, prune_mask(w, stats[local], n_seq, ratio(local)))
+                set_full_weight(lin, w)
         else:
             groups = (shape_groups(block, stack.linear_names) if sparsegpt_group
                       else [[local] for local in stack.linear_names])
             for group in groups:
-                ws = [block.get_submodule(local).weight for local in group]
+                lins = [block.get_submodule(local) for local in group]
+                ws = [full_weight(lin) for lin in lins]
                 if len(group) >= 2:
                     new = prune_group(
                         torch.stack(ws), torch.stack([stats[ln] for ln in group]),
@@ -198,8 +219,8 @@ def stream_prune_stack(
                 else:
                     new = prune_weight(ws[0], stats[group[0]], n_seq,
                                        ratio(group[0]), times=times)[None]
-                for w, w2 in zip(ws, new):
-                    w.copy_(w2)
+                for lin, w2 in zip(lins, new):
+                    set_full_weight(lin, w2)
         del stats
         ts = mark("prune_s", ts)
         for xc, cc in slices:
@@ -212,12 +233,13 @@ def stream_prune_stack(
 def check_stack_sparsity(stack: StackSpec, model: nn.Module,
                          verbose: bool = True) -> float:
     """Zero fraction over a stack's prunable weights
-    (T5LayerWandaPruner.check_sparsity, wanda_pruner.py:139-163)."""
+    (T5LayerWandaPruner.check_sparsity, wanda_pruner.py:139-163), counted
+    on the whole weights."""
     count = total = 0
     for i, block in enumerate(stack.blocks(model)):
         sub_count = sub_total = 0
         for local in stack.linear_names:
-            w = block.get_submodule(local).weight
+            w = full_weight(block.get_submodule(local))
             sub_count += int((w == 0).sum())
             sub_total += w.numel()
         if verbose:

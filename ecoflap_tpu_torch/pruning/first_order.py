@@ -39,6 +39,13 @@ methods and the global |W|.|G| pruner read them. The model is frozen (``build_mo
 each target weight takes ``requires_grad`` only for its own backward. Both
 paths enable grad themselves, so they run under a caller's ``no_grad`` (the
 CLI prunes under one).
+
+Under a mesh each dp rank takes its slice of every microbatch; the
+per-sample losses are gathered before the mean, so each rank's backward
+gives its samples' share of the whole microbatch's gradient, and the
+weight gradients are summed over dp. Under tp every statistic is taken on
+the whole weight and the whole gradient (both gathered over tp); a
+replicated parameter's gradient is already whole on every rank.
 """
 
 from __future__ import annotations
@@ -49,6 +56,8 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence
 import torch
 from torch import nn
 
+from ecoflap_tpu_torch.parallel.mesh import all_gather_cat, dp_gather, dp_slice, dp_split, dp_sum_
+from ecoflap_tpu_torch.parallel.sharding import full_weight, shard_of
 from ecoflap_tpu_torch.pruning.mezo import LossFn, slice_microbatch
 from ecoflap_tpu_torch.pruning.plans import leading_dim
 from ecoflap_tpu_torch.pruning.targets import WeightTarget
@@ -83,20 +92,39 @@ def _requiring_grad(tensors: Iterable[torch.Tensor]):
             t.requires_grad_(f)
 
 
+def _microbatch(data: Any, b: int, num: int, batch_size: int):
+    """(this rank's slice of microbatch ``b``, the microbatch's size)."""
+    size = batch_size // num
+    return dp_slice(slice_microbatch(data, b, num, batch_size), size), size
+
+
+def _whole(lin: nn.Module, g: torch.Tensor, size: int):
+    """(whole weight, whole gradient of it): ``g``, this rank's share of the
+    microbatch's gradient of this rank's slice, summed over dp (when the
+    microbatch of ``size`` was cut) and gathered over tp."""
+    if dp_split(size):
+        g = dp_sum_(g.contiguous())
+    sh = shard_of(lin)
+    if sh is not None:
+        g = all_gather_cat(g, sh.dim, sh.group, sh.size)
+    return full_weight(lin), g
+
+
 @torch.enable_grad()
 def _streamed_block_grads(model: nn.Module, data: Any, num_microbatches: int,
                           plan: Any):
     """Per microbatch, and per block from the last to the first, (block
-    index, the block's target weights, their gradients of the microbatch's
-    mean loss) through the per-block VJP of ``plan``'s stack (its
-    ``stack``, ``finish_fn``, ``base_data`` and ``batch_size`` are read, its
-    MeZO cache is not built). The gradients live until the next item."""
+    index, the block's target weights and their gradients of the
+    microbatch's mean loss, both whole) through the per-block VJP of
+    ``plan``'s stack (its ``stack``, ``finish_fn``, ``base_data`` and
+    ``batch_size`` are read, its MeZO cache is not built). The gradients
+    live until the next item."""
     stack = plan.stack
     blocks = stack.blocks(model)
     batch_size = leading_dim(data)
     for b in range(num_microbatches):
-        mb = slice_microbatch(data, b, num_microbatches, batch_size)
-        d = slice_microbatch(plan.base_data, b, num_microbatches, plan.batch_size)
+        mb, size = _microbatch(data, b, num_microbatches, batch_size)
+        d, _ = _microbatch(plan.base_data, b, num_microbatches, plan.batch_size)
         with torch.no_grad():
             x, cache = stack.prepare_inputs(model, mb)
             xs: List[Optional[torch.Tensor]] = []
@@ -104,10 +132,11 @@ def _streamed_block_grads(model: nn.Module, data: Any, num_microbatches: int,
                 xs.append(x)
                 x, _ = stack.block_forward(blk, x, cache, None)
         y = x.requires_grad_(True)
-        (g,) = torch.autograd.grad(plan.finish_fn(model, y, d).mean(), y)
+        (g,) = torch.autograd.grad(dp_gather(plan.finish_fn(model, y, d), size).mean(), y)
         del y, x
         for i in range(stack.num_blocks - 1, -1, -1):
-            ws = [blocks[i].get_submodule(ln).weight for ln in stack.linear_names]
+            lins = [blocks[i].get_submodule(ln) for ln in stack.linear_names]
+            ws = [lin.weight for lin in lins]
             x_in = xs[i]
             xs[i] = None
             if i > 0:  # block 0's input takes no gradient
@@ -117,7 +146,7 @@ def _streamed_block_grads(model: nn.Module, data: Any, num_microbatches: int,
                 grads = torch.autograd.grad(
                     out, ws + ([x_in] if i > 0 else []), grad_outputs=g.to(out.dtype))
             del out, x_in
-            yield i, ws, grads[:len(ws)]
+            yield i, *zip(*[_whole(lin, gw, size) for lin, gw in zip(lins, grads)])
             g = grads[-1] if i > 0 else None
             del grads
 
@@ -125,16 +154,17 @@ def _streamed_block_grads(model: nn.Module, data: Any, num_microbatches: int,
 @torch.enable_grad()
 def _rest_grads(loss_fn: LossFn, model: nn.Module, data: Any,
                 num_microbatches: int, targets: Sequence[WeightTarget]):
-    """Targets outside every plan: per microbatch, (their weights, their
-    gradients) from one backward of the whole mean loss, with grad on those
-    weights only."""
-    ws = [t.weight(model) for t in targets]
+    """Targets outside every plan: per microbatch, (their whole weights,
+    their whole gradients) from one backward of the whole mean loss, with
+    grad on those weights only."""
+    lins = [t.linear(model) for t in targets]
+    ws = [lin.weight for lin in lins]
     batch_size = leading_dim(data)
     for b in range(num_microbatches):
-        mb = slice_microbatch(data, b, num_microbatches, batch_size)
+        mb, size = _microbatch(data, b, num_microbatches, batch_size)
         with _requiring_grad(ws):
-            grads = torch.autograd.grad(loss_fn(model, mb).mean(), ws)
-        yield ws, grads
+            grads = torch.autograd.grad(dp_gather(loss_fn(model, mb), size).mean(), ws)
+        yield zip(*[_whole(lin, g, size) for lin, g in zip(lins, grads)])
 
 
 def _target_grads(loss_fn: LossFn, model: nn.Module, data: Any,
@@ -251,6 +281,6 @@ def first_order_importance(
                                  square=square, plans=plans)
     if score_compute != "GradOnly":  # G is already nonnegative
         for t in targets:
-            w = t.weight(model).to(torch.float32)
+            w = t.full_weight(model).to(torch.float32)
             grads[t.name].mul_(w * w if square else w.abs())
     return grads

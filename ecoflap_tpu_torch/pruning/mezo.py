@@ -30,6 +30,15 @@ for all microbatches and scores ``sum_mb |g+_mb - g-_mb| / 2eps`` over the
 per-microbatch mean losses (a documented deviation of the JAX package,
 PARITY.md). The kernel seed of a draw comes from the run's integer seed
 through ``np.random.SeedSequence`` (``perturb_seed``).
+
+Under a mesh (``parallel.mesh.use_mesh``) each dp rank evaluates its slice
+of every global microbatch, and the ranks' per-sample losses are gathered
+before the mean, so a microbatch's loss is the whole microbatch's mean on
+every rank (the same microbatch partition, so the same estimator). A
+microbatch that dp does not divide is evaluated whole on every rank. Both
+ways of perturbing read the whole weight (``WeightTarget.full_weight``) and
+perturb it with the same Philox counters as one process would, then keep
+this rank's slice: the same values, bit for bit.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import torch
 from torch import nn
 
 from ecoflap_tpu_torch.ops.perturb import perturb, perturb_inplace
+from ecoflap_tpu_torch.parallel.mesh import dp_gather, dp_slice
 from ecoflap_tpu_torch.pruning.plans import SuffixPlan, leading_dim
 from ecoflap_tpu_torch.pruning.targets import WeightTarget
 
@@ -171,21 +181,33 @@ def mezo_leaf_scores(
     two_eps = 2.0 * eps
 
     # b is the microbatch, None in shared mode (one z for all microbatches)
-    def perturb_in_place(w, ti, b, n, scale):
+    def perturb_weight(w, ti, b, n, scale):
         if noise is None:
             perturb_inplace(w, perturb_seed(seed, ti, b, n), scale)
         else:
             w.copy_(_scaled(w, noise(ti, b, n, tuple(w.shape)), scale))
 
-    def lanes(ws, i0, b, n, scale):
+    def lanes(group, ws, i0, b, n, scale):
         if noise is None:
-            return [perturb(w, perturb_seed(seed, i0 + k, b, n), scale)
+            full = [perturb(w, perturb_seed(seed, i0 + k, b, n), scale)
                     for k, w in enumerate(ws)]
-        return [_scaled(w, noise(i0 + k, b, n, tuple(w.shape)), scale)
-                for k, w in enumerate(ws)]
+        else:
+            full = [_scaled(w, noise(i0 + k, b, n, tuple(w.shape)), scale)
+                    for k, w in enumerate(ws)]
+        return [t.local_slice(model, w) for t, w in zip(group, full)]
 
     def microbatches(tdata, static, num):
-        return [slice_microbatch(tdata, b, num, batch_size, static) for b in range(num)]
+        """(this rank's slice of microbatch b, b's whole size) per b."""
+        size = batch_size // num
+        return [(dp_slice(slice_microbatch(tdata, b, num, batch_size, static), size,
+                          static), size) for b in range(num)]
+
+    def mean_loss(fn, mb):
+        return dp_gather(fn(model, mb[0]), mb[1]).mean()
+
+    def lane_means(plan, mb, paths, lane_ws):
+        return dp_gather(plan.lane_losses(model, mb[0], paths, lane_ws), mb[1],
+                         dim=1)
 
     def score_serial(ti, t):
         plan = next((p for p in plans if p.match(t.name)), None)
@@ -194,15 +216,22 @@ def mezo_leaf_scores(
                 plan.static_keys
         else:
             tfn, tdata, static = loss_fn, data, ()
-        w = t.weight(model)
+        # the parameter itself, or a whole copy of a tp-sharded one whose
+        # every perturbation is written back to this rank's slice
+        w = t.full_weight(model)
+
+        def perturb_in_place(w, ti, b, n, scale):
+            perturb_weight(w, ti, b, n, scale)
+            t.set_full_weight(model, w)
+
         mbs = microbatches(tdata, static, num_microbatches)
         score = torch.zeros((), dtype=torch.float32, device=w.device)
         if shared:
             for n in range(num_noise):
                 perturb_in_place(w, ti, None, n, eps)
-                g_plus = torch.stack([tfn(model, mb).mean() for mb in mbs])
+                g_plus = torch.stack([mean_loss(tfn, mb) for mb in mbs])
                 perturb_in_place(w, ti, None, n, -2.0 * eps)
-                g_minus = torch.stack([tfn(model, mb).mean() for mb in mbs])
+                g_minus = torch.stack([mean_loss(tfn, mb) for mb in mbs])
                 perturb_in_place(w, ti, None, n, eps)  # restore
                 score = score + ((g_plus - g_minus).abs() / two_eps).sum()
             return score
@@ -210,9 +239,9 @@ def mezo_leaf_scores(
             per_batch = torch.zeros((), dtype=torch.float32, device=w.device)
             for n in range(num_noise):
                 perturb_in_place(w, ti, b, n, eps)
-                l_plus = tfn(model, mb).mean()
+                l_plus = mean_loss(tfn, mb)
                 perturb_in_place(w, ti, b, n, -2.0 * eps)
-                l_minus = tfn(model, mb).mean()
+                l_minus = mean_loss(tfn, mb)
                 perturb_in_place(w, ti, b, n, eps)  # restore
                 per_batch = per_batch + (l_plus - l_minus).abs() / two_eps
             # reference: gradients_dict[name] += |per_batch| (:549)
@@ -222,7 +251,7 @@ def mezo_leaf_scores(
     def score_group(i0, group, plan):
         tdata = plan.prepare(model, group[0].name)
         paths = plan.lane_paths(group)
-        ws = [t.weight(model) for t in group]
+        ws = [t.full_weight(model) for t in group]
         k = len(group)
         score = torch.zeros(k, dtype=torch.float32, device=ws[0].device)
         if shared:
@@ -230,20 +259,20 @@ def mezo_leaf_scores(
                                   _lane_chunks(batch_size, num_microbatches, k))
 
             def group_means(lane_ws):
-                losses = torch.cat([plan.lane_losses(model, c, paths, lane_ws)
+                losses = torch.cat([lane_means(plan, c, paths, lane_ws)
                                     for c in chunks], dim=1)
                 return losses.reshape(k, num_microbatches, -1).mean(dim=2)
 
             for n in range(num_noise):
-                g_plus = group_means(lanes(ws, i0, None, n, eps))
-                g_minus = group_means(lanes(ws, i0, None, n, -eps))
+                g_plus = group_means(lanes(group, ws, i0, None, n, eps))
+                g_minus = group_means(lanes(group, ws, i0, None, n, -eps))
                 score = score + ((g_plus - g_minus).abs() / two_eps).sum(dim=1)
             return score
         for b, mb in enumerate(microbatches(tdata, plan.static_keys, num_microbatches)):
             per_batch = torch.zeros_like(score)
             for n in range(num_noise):
-                l_plus = plan.lane_losses(model, mb, paths, lanes(ws, i0, b, n, eps))
-                l_minus = plan.lane_losses(model, mb, paths, lanes(ws, i0, b, n, -eps))
+                l_plus = lane_means(plan, mb, paths, lanes(group, ws, i0, b, n, eps))
+                l_minus = lane_means(plan, mb, paths, lanes(group, ws, i0, b, n, -eps))
                 per_batch = per_batch + (l_plus.mean(dim=1)
                                          - l_minus.mean(dim=1)).abs() / two_eps
             score = score + per_batch.abs()
@@ -272,7 +301,7 @@ def mezo_group_sums(model: nn.Module, targets: List[WeightTarget],
     square = score_compute == "MEZO-GradMagSquare"
     out: Dict[str, float] = {}
     for t in targets:
-        w = t.weight(model).to(torch.float32)
+        w = t.full_weight(model).to(torch.float32)
         s = float(leaf_scores[t.name])
         if square:
             out[t.name] = (s * s) * float(w.square().sum())

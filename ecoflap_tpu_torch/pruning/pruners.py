@@ -232,7 +232,7 @@ class TwoStagePruner:
 
     def check_sparsity(self) -> float:
         """Zero fraction over the prunable weights."""
-        return global_sparsity(t.weight(self.adapter.model)
+        return global_sparsity(t.full_weight(self.adapter.model)
                                for t in self.adapter.targets())
 
 
@@ -311,7 +311,8 @@ class GlobalPruner:
     def _importance(self, targets) -> Dict[str, torch.Tensor]:
         model = self.adapter.model
         if self.score == "mag":
-            return {t.name: t.weight(model).to(torch.float32).abs() for t in targets}
+            return {t.name: t.full_weight(model).to(torch.float32).abs()
+                    for t in targets}
         data, num_mb = self._score_data()
         if self.score == "gradmagabs":
             # the suffix plans stream each stack's backward block by block
@@ -371,7 +372,7 @@ class GlobalPruner:
             synchronize(dev)
             self.phase_times[f"iteration_{i}_select_s"] = time.time() - ts
             for t in targets:
-                t.weight(model).mul_(masks[t.name])
+                t.weight(model).mul_(t.local_slice(model, masks[t.name]))
             synchronize(dev)
             self.phase_times[f"iteration_{i}_s"] = time.time() - t0
             if self.verbose:

@@ -145,7 +145,7 @@ def _real_global_sparsity(
     round scoring the weights the last one left, and return each target's
     zero share. The JAX package prunes a functional copy; here the model's
     weights are pruned in place and restored bit for bit afterwards."""
-    weights = [t.weight(model) for t in targets]
+    weights = [t.weight(model) for t in targets]  # this rank's slices under tp
     saved = [w.clone() for w in weights]
     try:
         masks: Optional[Dict[str, torch.Tensor]] = None
@@ -158,8 +158,9 @@ def _real_global_sparsity(
             masks = global_mask(imp, p_i, max_sparsity_per_layer=1.0)
             del imp
             for t, w in zip(targets, weights):
-                w.mul_(masks[t.name])
-        return {t.name: float((w == 0).float().mean()) for t, w in zip(targets, weights)}
+                w.mul_(t.local_slice(model, masks[t.name]))
+        return {t.name: float((t.full_weight(model) == 0).float().mean())
+                for t in targets}
     finally:
         for w, w0 in zip(weights, saved):
             w.copy_(w0)

@@ -10,6 +10,12 @@ again, so a pruned entry stays exactly 0 through the weight decay.
 every parameter, eps outside the square root, bias correction), so a step
 holds to the JAX package's on the same gradients. As in the JAX package the
 masks cover every parameter, biases and norms too (one that is 0 stays 0).
+
+Under a mesh (``parallel.mesh.use_mesh``) each dp rank takes its slice of
+the batch, the per-sample losses are gathered before the mean, and the
+gradients are summed over dp before ``masked_update``: the gradient of the
+whole batch's mean, the mean of the ranks' gradients. Each tp rank steps its
+own slice of a sharded parameter under its own slice of the mask.
 """
 
 from __future__ import annotations
@@ -18,6 +24,9 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 from torch import nn
+
+from ecoflap_tpu_torch.parallel.mesh import dp_gather, dp_slice, dp_split, dp_sum_
+from ecoflap_tpu_torch.pruning.plans import leading_dim
 
 LossFn = Callable[[nn.Module, Any], torch.Tensor]  # -> (B,) per-sample losses
 
@@ -48,8 +57,13 @@ def train_step(loss_fn: LossFn, model: nn.Module, optimizer: torch.optim.Optimiz
                masks: Dict[str, torch.Tensor], batch: Any) -> float:
     """One masked step on ``batch``; returns its mean loss."""
     optimizer.zero_grad(set_to_none=True)
-    loss = loss_fn(model, batch).mean()
+    n = leading_dim(batch)
+    loss = dp_gather(loss_fn(model, dp_slice(batch, n)), n).mean()
     loss.backward()
+    if dp_split(n):
+        for p in model.parameters():
+            if p.grad is not None:
+                dp_sum_(p.grad)
     masked_update(model, optimizer, masks)
     return float(loss.detach())
 

@@ -1,10 +1,12 @@
-"""The evaluation loop and the pruning artifacts (port of
-``ecoflap_tpu/runners/runner.py``'s evaluation and its three savers;
-reference runner_base.py:419-428 and evaluate_blip.py:438-472): a task's
-metrics, logged as one JSON line each to ``evaluate.txt``;
-``sparsity_dict/<job>.yaml`` under the reference keys,
+"""The evaluation loop, the pruning artifacts and the training runners
+(port of ``ecoflap_tpu/runners/runner.py``; reference runner_base.py and
+evaluate_blip.py:438-472): a task's metrics, logged as one JSON line each to
+``evaluate.txt``; ``sparsity_dict/<job>.yaml`` under the reference keys,
 ``training_statistics/<job>.yaml`` with the wall clock and the card's peak
-memory, and the pruned model as ``pruned_checkpoint/<job>.pth``.
+memory, the pruned model as ``pruned_checkpoint/<job>.pth``; checkpoints
+as ``<name>.pth`` (``torch.save``; the port reads and writes no orbax), and
+``TrainRunner`` / ``IterTrainRunner``, the masked epoch loop with its best
+checkpoint, resume and split-aware evaluation.
 
 The files are flat ``key: value`` YAML written as PyYAML's ``safe_dump``
 writes them (sorted keys, floats with a dot), so no YAML package is needed.
@@ -13,11 +15,13 @@ writes them (sorted keys, floats with a dot), so no YAML package is needed.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import time
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Iterable, Mapping, Optional
 
 import torch
+from torch import nn
 
 from ecoflap_tpu_torch.utils.checkpoint import save_torch_checkpoint
 
@@ -49,10 +53,16 @@ def read_flat_yaml(path: str) -> Dict[str, float]:
 
 
 class Runner:
-    def __init__(self, output_dir: str = "output", job_id: str = "job"):
+    """``write=False`` (every rank of a multi-rank run but rank 0) computes
+    and returns the artifacts' paths without writing them."""
+
+    def __init__(self, output_dir: str = "output", job_id: str = "job",
+                 write: bool = True):
         self.output_dir = output_dir
         self.job_id = job_id
-        os.makedirs(output_dir, exist_ok=True)
+        self.write = write
+        if write:
+            os.makedirs(output_dir, exist_ok=True)
 
     # -- evaluation (runner.py:38-66) -------------------------------------------
 
@@ -76,6 +86,8 @@ class Runner:
     def log_metrics(self, metrics: Mapping[str, Any], split: str = "val") -> None:
         """Append ``{split: metrics}`` as a JSON line to ``evaluate.txt``
         (the reference's vqa.py:178-181 convention)."""
+        if not self.write:
+            return
         with open(os.path.join(self.output_dir, "evaluate.txt"), "a") as f:
             f.write(json.dumps({split: dict(metrics)}) + "\n")
 
@@ -83,7 +95,8 @@ class Runner:
 
     def _path(self, sub: str) -> str:
         d = os.path.join(self.output_dir, sub)
-        os.makedirs(d, exist_ok=True)
+        if self.write:
+            os.makedirs(d, exist_ok=True)
         return os.path.join(d, f"{self.job_id}.yaml")
 
     def save_sparsity_dict(self, sparsity_dict: Optional[Mapping[str, float]]
@@ -91,7 +104,8 @@ class Runner:
         if sparsity_dict is None:
             return None
         path = self._path("sparsity_dict")
-        write_flat_yaml(path, {k: float(v) for k, v in sparsity_dict.items()})
+        if self.write:
+            write_flat_yaml(path, {k: float(v) for k, v in sparsity_dict.items()})
         return path
 
     def save_pruned_torch(self, state_dict: Mapping[str, torch.Tensor],
@@ -99,9 +113,10 @@ class Runner:
         """The reference-named ``.pth`` under ``pruned_checkpoint/``
         (runner.py:117-126)."""
         d = os.path.join(self.output_dir, "pruned_checkpoint")
-        os.makedirs(d, exist_ok=True)
         path = os.path.join(d, f"{name or self.job_id}.pth")
-        save_torch_checkpoint(state_dict, path)
+        if self.write:
+            os.makedirs(d, exist_ok=True)
+            save_torch_checkpoint(state_dict, path)
         return path
 
     def save_training_statistics(self, wall_clock_s: float,
@@ -111,8 +126,163 @@ class Runner:
             stats["max_memory_GiB"] = round(
                 torch.cuda.max_memory_allocated(device) / 2 ** 30, 2)
         path = self._path("training_statistics")
-        write_flat_yaml(path, stats)
+        if self.write:
+            write_flat_yaml(path, stats)
         return path
+
+
+    # -- checkpoints (runner.py:98-115) ------------------------------------------
+
+    def checkpoint_path(self, name: str) -> str:
+        return os.path.join(self.output_dir, f"{name}.pth")
+
+    def save_checkpoint(self, state: Mapping[str, Any], name: str = "checkpoint") -> str:
+        """``torch.save`` of ``state`` (tensors, state dicts, numbers) to
+        ``<output_dir>/<name>.pth``, written whole before it replaces an
+        older one."""
+        path = self.checkpoint_path(name)
+        if self.write:
+            torch.save(dict(state), path + ".tmp")
+            os.replace(path + ".tmp", path)
+        return path
+
+    def load_checkpoint(self, name: str = "checkpoint", map_location="cpu") -> Dict[str, Any]:
+        return torch.load(self.checkpoint_path(name), map_location=map_location,
+                          weights_only=False)
+
+
+def _state_copy(model: nn.Module) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+class TrainRunner(Runner):
+    """Epoch-based training (RunnerBase.train, runner_base.py:360-417): per
+    epoch a masked train pass, the evaluation of every valid split, the best
+    checkpoint on the "val" split's ``agg_metrics``, and a train state that
+    ``resume=True`` restores: the model, the optimizer state, the epoch and
+    the best-checkpoint tracking (the reference's ``{model, optimizer,
+    epoch}`` dict, runner_base.py:897-967)."""
+
+    def __init__(self, output_dir: str = "output", job_id: str = "job",
+                 max_epoch: int = 1, write: bool = True):
+        super().__init__(output_dir, job_id, write)
+        self.max_epoch = max_epoch
+        self.best_agg = float("-inf")
+        self.best_epoch = -1
+
+    def save_train_state(self, model: nn.Module, optimizer: torch.optim.Optimizer,
+                         epoch: int, name: str = "train_state") -> str:
+        return self.save_checkpoint({
+            "model": model.state_dict(), "optimizer": optimizer.state_dict(),
+            "epoch": epoch, "best_agg": self.best_agg, "best_epoch": self.best_epoch,
+        }, name)
+
+    def load_train_state(self, model: nn.Module, optimizer: torch.optim.Optimizer,
+                         name: str = "train_state") -> int:
+        """Restore model, optimizer and best tracking; returns the next
+        epoch (_load_checkpoint, runner_base.py:945-967)."""
+        dev = next(model.parameters()).device
+        state = self.load_checkpoint(name, map_location=dev)
+        model.load_state_dict(state["model"])
+        optimizer.load_state_dict(state["optimizer"])
+        self.best_agg = float(state["best_agg"])
+        self.best_epoch = int(state["best_epoch"])
+        return int(state["epoch"]) + 1
+
+    def train(self, loss_fn: Callable, model: nn.Module,
+              epoch_batches_fn: Callable[[int], Iterable[Any]], task=None,
+              eval_data_fn: Optional[Callable[[], Any]] = None,
+              optimizer: Optional[torch.optim.Optimizer] = None,
+              masks: Optional[Dict[str, torch.Tensor]] = None,
+              learning_rate: float = 1e-5, weight_decay: float = 0.05,
+              resume: bool = False,
+              valid_splits_fn: Optional[Callable[[], Mapping[str, Any]]] = None,
+              test_splits_fn: Optional[Callable[[], Mapping[str, Any]]] = None,
+              scheduler=None) -> Dict[str, torch.Tensor]:
+        """Train ``model`` in place; ``epoch_batches_fn(epoch)`` gives an
+        epoch's batches. Every valid split is evaluated each epoch and logged
+        with ``best_epoch``; the best checkpoint keys on the "val" split
+        alone (runner_base.py:393; without valid splits, on the train loss).
+        After the last epoch the model holds the best weights, and
+        ``test_splits_fn``'s splits are evaluated on them. ``eval_data_fn``
+        is the one-split shorthand for ``{"val": eval_data_fn()}``. Returns
+        the best state dict."""
+        from ecoflap_tpu_torch.runners.finetune import adamw, make_sparsity_masks, train_step
+
+        masks = masks if masks is not None else make_sparsity_masks(model)
+        optimizer = optimizer or adamw(model, learning_rate, weight_decay)
+        start_epoch = self.load_train_state(model, optimizer) if resume else 0
+        best = _state_copy(model)
+        if eval_data_fn is not None and valid_splits_fn is None:
+            valid_splits_fn = lambda: {"val": eval_data_fn()}  # noqa: E731
+        was_training = model.training
+        model.requires_grad_(True)
+        model.train(False)  # no dropout in the port's models; eval-mode numerics
+        try:
+            for epoch in range(start_epoch, self.max_epoch):
+                losses = []
+                for batch in epoch_batches_fn(epoch):
+                    with torch.enable_grad():
+                        losses.append(train_step(loss_fn, model, optimizer, masks, batch))
+                    if scheduler is not None:
+                        scheduler.step()
+                train_metrics: Dict[str, Any] = {
+                    "epoch": epoch, "train_loss": sum(losses) / max(len(losses), 1)}
+                self.log_metrics(train_metrics, split="train")
+                splits = valid_splits_fn() if (task is not None and valid_splits_fn) else {}
+                if task is not None and valid_splits_fn and "val" not in splits:
+                    logging.getLogger(__name__).warning(
+                        "valid splits %s hold no 'val' entry: the best checkpoint "
+                        "keys on 'val' only (runner_base.py:393)", sorted(splits))
+                if not splits:
+                    agg = -train_metrics["train_loss"]
+                    if agg > self.best_agg:
+                        self.best_agg, self.best_epoch = agg, epoch
+                        best = _state_copy(model)
+                        self.save_checkpoint({"model": best}, "checkpoint_best")
+                for split_name, data in splits.items():
+                    with torch.no_grad():
+                        val_log = {**train_metrics, **task.evaluation(data)}
+                    agg = val_log.get("agg_metrics", -val_log["train_loss"])
+                    if split_name == "val" and agg > self.best_agg:
+                        self.best_agg, self.best_epoch = agg, epoch
+                        best = _state_copy(model)
+                        self.save_checkpoint({"model": best}, "checkpoint_best")
+                    val_log["best_epoch"] = self.best_epoch
+                    self.log_metrics(val_log, split=split_name)
+                self.save_train_state(model, optimizer, epoch)
+        finally:
+            model.requires_grad_(False)
+            model.train(was_training)
+        model.load_state_dict(best)
+        if task is not None and test_splits_fn is not None:
+            # the testing phase on the best weights (runner_base.py:411-417)
+            with torch.no_grad():
+                self.evaluate_splits(task, test_splits_fn(), cur_epoch=self.best_epoch)
+        return best
+
+
+class IterTrainRunner(TrainRunner):
+    """Iteration-based training (RunnerIter, lavis/runners/runner_iter.py):
+    inner "epochs" of ``iters_per_inner_epoch`` steps over an endless
+    iterator."""
+
+    def __init__(self, output_dir: str = "output", job_id: str = "job",
+                 max_iters: int = 100, iters_per_inner_epoch: int = 10,
+                 write: bool = True):
+        super().__init__(output_dir, job_id,
+                         max_epoch=max(1, max_iters // iters_per_inner_epoch),
+                         write=write)
+        self.iters_per_inner_epoch = iters_per_inner_epoch
+
+    def train_iters(self, loss_fn: Callable, model: nn.Module,
+                    infinite_batches: Iterable[Any], **kw) -> Dict[str, torch.Tensor]:
+        it = iter(infinite_batches)
+
+        def epoch_batches(_epoch):
+            return [next(it) for _ in range(self.iters_per_inner_epoch)]
+
+        return self.train(loss_fn, model, epoch_batches, **kw)
 
 
 def global_sparsity(weights) -> float:

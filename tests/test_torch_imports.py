@@ -2,6 +2,7 @@
 entry points refuse to run on a missing card unless asked for the CPU."""
 
 import ast
+import os
 import pkgutil
 import subprocess
 import sys
@@ -78,7 +79,9 @@ def test_every_package_module_is_scanned():
                  "models.llama", "models.clip", "models.t5", "core.config",
                  "core.project", "data.coop", "data.prompts", "tasks.mmlu",
                  "tasks.classification", "models.bert", "models.blip1",
-                 "runners.finetune", "tasks.retrieval", "cli.upop"):
+                 "runners.finetune", "tasks.retrieval", "cli.upop", "parallel.dist",
+                 "parallel.mesh", "parallel.sharding", "models.zoo", "core.optims",
+                 "data.loaders", "data.randaugment", "utils.logger", "utils.profiling"):
         assert f"ecoflap_tpu_torch.{name}" in mods, name
 
 
@@ -144,3 +147,24 @@ def test_new_entry_points_default_to_the_card(argv):
     assert main.__module__ == argv[0]
     with pytest.raises(RuntimeError, match="CUDA"):
         main(argv[1:] + ["--model_scale", "tiny"])
+
+
+def test_importing_every_module_starts_no_process_group():
+    """The parallel modules (and every other) start nothing at import: no
+    process group, no card."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import torch, torch.distributed as dist\n"
+        "import ecoflap_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'ecoflap_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from ecoflap_tpu_torch.parallel.mesh import current\n"
+        "assert not dist.is_initialized() and current() is None\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=str(ROOT), timeout=120,
+                         env={**os.environ, "RANK": "0", "WORLD_SIZE": "2",
+                              "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "1"})
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
