@@ -42,7 +42,6 @@ from typing import Any, Callable, Dict, List, Mapping, Optional
 import torch
 from torch import nn
 
-from ecoflap_tpu_torch.core.device import synchronize
 from ecoflap_tpu_torch.parallel.mesh import dp_size, dp_slice, dp_split, dp_sum_
 from ecoflap_tpu_torch.parallel.sharding import full_shape, full_weight, set_full_weight
 from ecoflap_tpu_torch.pruning.adapter import StackSpec
@@ -59,6 +58,7 @@ from ecoflap_tpu_torch.pruning.wanda import (
     mask_per_tensor,
     wanda_metric,
 )
+from ecoflap_tpu_torch.utils.profiling import span
 
 LOCAL_METHODS = ("wanda", "sparsegpt")
 
@@ -82,20 +82,19 @@ def make_sparsegpt_prune_fns(blocksize: int = 128, percdamp: float = 0.01,
     """(serial, grouped) OBS sweeps from raw X^T X sums: the serial one maps
     (w, xtx, n_seq, ratio) to the pruned weight, the grouped one (K, out,
     in) weights and (K, in, in) sums with K ratios to K pruned weights. The
-    Hessian is (2 / n_seq) X^T X in float32 (SparseGPT.add_batch); ``times``
-    receives the seconds of ``prepare_hinv`` and of the sweep."""
+    Hessian is (2 / n_seq) X^T X in float32 (SparseGPT.add_batch)."""
 
-    def prune_weight(w, xtx, n_seq, ratio, times=None):
+    def prune_weight(w, xtx, n_seq, ratio):
         h = (2.0 / n_seq) * xtx.to(torch.float32)
         return sparsegpt_prune_weight(w, h, ratio, blocksize=blocksize,
                                       percdamp=percdamp, prune_n=prune_n,
-                                      prune_m=prune_m, times=times)
+                                      prune_m=prune_m)
 
-    def prune_weight_group(ws, xtxs, n_seq, ratios, times=None):
+    def prune_weight_group(ws, xtxs, n_seq, ratios):
         hs = (2.0 / n_seq) * xtxs.to(torch.float32)
         return sparsegpt_prune_weight_group(ws, hs, ratios, blocksize=blocksize,
                                             percdamp=percdamp, prune_n=prune_n,
-                                            prune_m=prune_m, times=times)
+                                            prune_m=prune_m)
 
     return prune_weight, prune_weight_group
 
@@ -126,18 +125,16 @@ def stream_prune_stack(
     prune_n: int = 0,
     prune_m: int = 0,
     sparsegpt_group: bool = True,
-    times: Optional[Dict[str, float]] = None,
     collect: Optional[str] = None,
 ) -> nn.Module:
     """Prune one stack of ``model`` in place with the local ``method``
     (``"wanda"`` or ``"sparsegpt"``), ``num_chunks`` forwards per pass (the
     count must divide the batch). ``prune_n``:``prune_m`` > 0 selects n:m
     masks. ``collect`` is the statistic: ``"wanda"`` (Wanda's default),
-    ``"hessian"`` (SparseGPT's) or ``"hessian_bf16"``. ``times``, when
-    given, receives the seconds of the statistics passes (``collect_s``),
-    the pruning (``prune_s``; for SparseGPT it holds ``prepare_hinv_s`` and
-    ``sweep_s``) and the re-forwards (``reforward_s``), each after a device
-    synchronise."""
+    ``"hessian"`` (SparseGPT's) or ``"hessian_bf16"``. Each block's
+    statistics passes, pruning and re-forwards are spans
+    (``ecoflap.fine.collect``, ``.prune``, ``.reforward``, tagged with the
+    stack; ``utils/profiling.py``)."""
     if method not in LOCAL_METHODS:
         raise ValueError(f"unknown local method {method!r}")
     sparsegpt = method == "sparsegpt"
@@ -172,60 +169,51 @@ def stream_prune_stack(
     if verbose:
         print(f"prepared inputs ({stack.name}) +{time.time() - t0:.1f}s")
 
-    def mark(key, since):
-        if times is None:
-            return since
-        synchronize(x.device)
-        now = time.time()
-        times[key] = times.get(key, 0.0) + now - since
-        return now
-
     blocks = stack.blocks(model)
-    ts = time.time()
     for i in range(stack.num_blocks):
         if verbose:
             print(f"pruning block {i} ({stack.name}) +{time.time() - t0:.1f}s")
         block = blocks[i]
-        stats = {}
-        for xc, cc in slices:
-            _, part = stack.block_forward(block, xc, cc, collect)
-            stats = {k: stats[k] + v if k in stats else v for k, v in part.items()}
-        if split:  # linears that read one input share one tensor: reduce it once
-            for v in {id(v): v for v in stats.values()}.values():
-                dp_sum_(v)
-        if out_bf16:
-            stats = {k: v.to(torch.bfloat16) for k, v in stats.items()}
-        ts = mark("collect_s", ts)
+        with span("ecoflap.fine.collect", stack=stack.name):
+            stats = {}
+            for xc, cc in slices:
+                _, part = stack.block_forward(block, xc, cc, collect)
+                stats = {k: stats[k] + v if k in stats else v for k, v in part.items()}
+            if split:  # linears that read one input share one tensor: reduce it once
+                for v in {id(v): v for v in stats.values()}.values():
+                    dp_sum_(v)
+            if out_bf16:
+                stats = {k: v.to(torch.bfloat16) for k, v in stats.items()}
 
         def ratio(local):
             return float(sparsity_ratio[stack.weight_key(i, local)])
 
-        if not sparsegpt:
-            for local in stack.linear_names:
-                lin = block.get_submodule(local)
-                w = full_weight(lin)
-                apply_mask(w, prune_mask(w, stats[local], n_seq, ratio(local)))
-                set_full_weight(lin, w)
-        else:
-            groups = (shape_groups(block, stack.linear_names) if sparsegpt_group
-                      else [[local] for local in stack.linear_names])
-            for group in groups:
-                lins = [block.get_submodule(local) for local in group]
-                ws = [full_weight(lin) for lin in lins]
-                if len(group) >= 2:
-                    new = prune_group(
-                        torch.stack(ws), torch.stack([stats[ln] for ln in group]),
-                        n_seq, [ratio(ln) for ln in group], times=times)
-                else:
-                    new = prune_weight(ws[0], stats[group[0]], n_seq,
-                                       ratio(group[0]), times=times)[None]
-                for lin, w2 in zip(lins, new):
-                    set_full_weight(lin, w2)
-        del stats
-        ts = mark("prune_s", ts)
-        for xc, cc in slices:
-            xc.copy_(stack.block_forward(block, xc, cc, None)[0])
-        ts = mark("reforward_s", ts)
+        with span("ecoflap.fine.prune", stack=stack.name):
+            if not sparsegpt:
+                for local in stack.linear_names:
+                    lin = block.get_submodule(local)
+                    w = full_weight(lin)
+                    apply_mask(w, prune_mask(w, stats[local], n_seq, ratio(local)))
+                    set_full_weight(lin, w)
+            else:
+                groups = (shape_groups(block, stack.linear_names) if sparsegpt_group
+                          else [[local] for local in stack.linear_names])
+                for group in groups:
+                    lins = [block.get_submodule(local) for local in group]
+                    ws = [full_weight(lin) for lin in lins]
+                    if len(group) >= 2:
+                        new = prune_group(
+                            torch.stack(ws), torch.stack([stats[ln] for ln in group]),
+                            n_seq, [ratio(ln) for ln in group])
+                    else:
+                        new = prune_weight(ws[0], stats[group[0]], n_seq,
+                                           ratio(group[0]))[None]
+                    for lin, w2 in zip(lins, new):
+                        set_full_weight(lin, w2)
+            del stats
+        with span("ecoflap.fine.reforward", stack=stack.name):
+            for xc, cc in slices:
+                xc.copy_(stack.block_forward(block, xc, cc, None)[0])
     return model
 
 

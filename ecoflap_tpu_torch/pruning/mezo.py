@@ -22,7 +22,8 @@ BLIP-2's stacks take the ensemble, LLaMA's the serial cycle); True sends
 every planned target to the ensemble, as the JAX package's default does;
 False sends every target the serial way. Targets no plan covers, and
 those a ``LossPlan`` covers (scored by the plan's loss on the plan's data),
-always go the serial way.
+always go the serial way. Each ``lane_losses`` call is a span and a count,
+``ecoflap.coarse.lanes`` tagged with the stack (``utils/profiling.py``).
 
 Noise modes: ``per_batch`` (default, the reference's sampling) draws a fresh
 z per (target, microbatch, draw); ``shared`` draws one z per (target, draw)
@@ -53,6 +54,7 @@ from ecoflap_tpu_torch.ops.perturb import perturb, perturb_inplace
 from ecoflap_tpu_torch.parallel.mesh import dp_gather, dp_slice
 from ecoflap_tpu_torch.pruning.plans import SuffixPlan, leading_dim
 from ecoflap_tpu_torch.pruning.targets import WeightTarget
+from ecoflap_tpu_torch.utils.profiling import count, span
 
 LossFn = Callable[[nn.Module, Any], torch.Tensor]  # -> (B,) per-sample losses
 # (target index, microbatch or None in shared mode, noise draw, (out, in)
@@ -206,8 +208,10 @@ def mezo_leaf_scores(
         return dp_gather(fn(model, mb[0]), mb[1]).mean()
 
     def lane_means(plan, mb, paths, lane_ws):
-        return dp_gather(plan.lane_losses(model, mb[0], paths, lane_ws), mb[1],
-                         dim=1)
+        with span("ecoflap.coarse.lanes", stack=plan.stack.name):
+            losses = plan.lane_losses(model, mb[0], paths, lane_ws)
+            count("ecoflap.coarse.lanes")
+        return dp_gather(losses, mb[1], dim=1)
 
     def score_serial(ti, t):
         plan = next((p for p in plans if p.match(t.name)), None)

@@ -24,7 +24,6 @@ from typing import Any, Dict, List, Mapping, Optional, Union
 
 import torch
 
-from ecoflap_tpu_torch.core.device import synchronize
 from ecoflap_tpu_torch.core.registry import registry
 from ecoflap_tpu_torch.core.spec import parse_prune_spec
 from ecoflap_tpu_torch.pruning.adapter import ModelAdapter
@@ -40,6 +39,39 @@ from ecoflap_tpu_torch.pruning.mezo import NoiseFn, mezo_leaf_scores
 from ecoflap_tpu_torch.pruning.plans import leading_dim
 from ecoflap_tpu_torch.pruning.sparsity import compute_layer_sparsity
 from ecoflap_tpu_torch.runners.runner import global_sparsity, read_flat_yaml
+from ecoflap_tpu_torch.utils.profiling import Recording, recording, span
+
+# the ``phase_times`` key of each span and counter a prune records; the
+# fields are the span's tags
+SPAN_KEYS = {
+    "ecoflap.coarse": "coarse_s",
+    "ecoflap.coarse.lanes": "coarse_{stack}_lanes_s",
+    "ecoflap.fine": "fine_{stack}_s",
+    "ecoflap.fine.collect": "fine_{stack}_collect_s",
+    "ecoflap.fine.prune": "fine_{stack}_prune_s",
+    "ecoflap.fine.prepare_hinv": "fine_{stack}_prepare_hinv_s",
+    "ecoflap.fine.sweep": "fine_{stack}_sweep_s",
+    "ecoflap.fine.graph_build": "fine_{stack}_graph_build_s",
+    "ecoflap.fine.reforward": "fine_{stack}_reforward_s",
+    "ecoflap.global.iteration": "iteration_{iteration}_s",
+    "ecoflap.global.select": "iteration_{iteration}_select_s",
+}
+COUNT_KEYS = {
+    "ecoflap.coarse.lanes": "coarse_{stack}_lanes_n",
+    "ecoflap.fine.graph_build": "fine_{stack}_graph_builds_n",
+}
+
+
+def phase_times(rec: Recording) -> Dict[str, float]:
+    """A recording's span totals (seconds) and counts under their
+    ``phase_times`` keys (``SPAN_KEYS``, ``COUNT_KEYS``)."""
+    out: Dict[str, float] = {}
+    for keys, totals in ((SPAN_KEYS, rec.seconds), (COUNT_KEYS, rec.counts)):
+        for (name, tags), v in totals.items():
+            if name in keys:
+                k = keys[name].format(**dict(tags))
+                out[k] = out.get(k, 0) + v
+    return out
 
 
 def _slice(tree: Any, n: int) -> Any:
@@ -186,46 +218,46 @@ class TwoStagePruner:
 
     def prune(self):
         """(model, sparsity dict), the reference ``prune()`` contract
-        (wanda_pruner.py:799-876). ``phase_times`` then holds the walls of
-        the coarse stage and of each stack's fine stage, in seconds."""
+        (wanda_pruner.py:799-876). ``phase_times`` then holds, in seconds
+        on the device's clock (``utils/profiling.py``), the coarse stage
+        (``coarse_s``) and each stack's fine stage (``fine_<stack>_s``)
+        with its statistics passes, pruning and re-forwards
+        (``_collect_s``, ``_prune_s``, ``_reforward_s``; SparseGPT's pruning
+        holds ``_prepare_hinv_s`` and ``_sweep_s``, the sweep its CUDA graph
+        builds, ``_graph_build_s``); the lane ensemble's forwards per stack
+        (``coarse_<stack>_lanes_s``). Counts end in ``_n``: the lane
+        forwards (``coarse_<stack>_lanes_n``) and the graph builds
+        (``fine_<stack>_graph_builds_n``). A key is there when its phase
+        ran."""
         model = self.adapter.model
-        dev = next(model.parameters()).device
         t0 = time.time()
-        self.phase_times = {}
         global_dict = None
-        if self.sparsity_ratio_granularity is not None or self.sparsity_dict is not None:
+        with recording(next(model.parameters()).device) as rec:
             specs = [self._spec_for_stack(s.name) for s in self.adapter.stacks
                      if self._spec_for_stack(s.name) is not None]
-            if not specs:
-                return model, None
-            ratios = {parse_prune_spec(s).sparsity for s in specs}
-            if len(ratios) != 1:
-                raise ValueError("all stacks must share the target sparsity "
-                                 "(wanda_pruner.py:807)")
-            global_dict = self.get_sparsity(ratios.pop(),
-                                            self.sparsity_ratio_granularity)
-            synchronize(dev)
-            self.phase_times["coarse_s"] = time.time() - t0
-        for stack in self.adapter.stacks:
-            spec = self._spec_for_stack(stack.name)
-            if spec is None:
-                continue
-            stack_dict = (global_dict if global_dict is not None
-                          else UniformSparsity(parse_prune_spec(spec).sparsity))
-            ts = time.time()
-            split: Optional[Dict[str, float]] = (
-                {} if self.local_method == "sparsegpt" else None)
-            stream_prune_stack(stack, model, self.data, stack_dict,
-                               verbose=self.verbose,
-                               num_chunks=self.num_microbatches,
-                               method=self.local_method, prune_n=self.prune_n,
-                               prune_m=self.prune_m, times=split,
-                               collect=("hessian_bf16" if self.hessian_bf16
-                                        and self.local_method == "sparsegpt" else None))
-            synchronize(dev)
-            self.phase_times[f"fine_{stack.name}_s"] = time.time() - ts
-            for k, v in (split or {}).items():
-                self.phase_times[f"fine_{stack.name}_{k}"] = v
+            if specs and (self.sparsity_ratio_granularity is not None
+                          or self.sparsity_dict is not None):
+                ratios = {parse_prune_spec(s).sparsity for s in specs}
+                if len(ratios) != 1:
+                    raise ValueError("all stacks must share the target sparsity "
+                                     "(wanda_pruner.py:807)")
+                with span("ecoflap.coarse"):
+                    global_dict = self.get_sparsity(ratios.pop(),
+                                                    self.sparsity_ratio_granularity)
+            for stack in self.adapter.stacks:
+                spec = self._spec_for_stack(stack.name)
+                if spec is None:
+                    continue
+                stack_dict = (global_dict if global_dict is not None
+                              else UniformSparsity(parse_prune_spec(spec).sparsity))
+                with span("ecoflap.fine", stack=stack.name):
+                    stream_prune_stack(
+                        stack, model, self.data, stack_dict, verbose=self.verbose,
+                        num_chunks=self.num_microbatches, method=self.local_method,
+                        prune_n=self.prune_n, prune_m=self.prune_m,
+                        collect=("hessian_bf16" if self.hessian_bf16
+                                 and self.local_method == "sparsegpt" else None))
+        self.phase_times = phase_times(rec)
         if self.verbose:
             print(f"prune spent {time.time() - t0:.3f} s")
         return model, global_dict
@@ -256,9 +288,10 @@ class GlobalPruner:
     (``w * m``, as the JAX package prunes, so a pruned negative weight is
     -0.0). Takes and ignores the two-stage pruner's other settings, as the
     JAX package does for a non-global configuration. ``phase_times`` gets
-    each step's wall and its selection's; ``importance_stats`` each step's
-    float32 importance bytes and non-finite entries; ``leaf_scores`` the
-    last step's MeZO scores."""
+    each step's seconds and its selection's (``iteration_<i>_s``,
+    ``iteration_<i>_select_s``, on the device's clock);
+    ``importance_stats`` each step's float32 importance bytes and non-finite
+    entries; ``leaf_scores`` the last step's MeZO scores."""
 
     score = "mag"
 
@@ -348,35 +381,32 @@ class GlobalPruner:
     def prune(self):
         """(model, None), the JAX ``GlobalPruner.prune`` contract."""
         model = self.adapter.model
-        dev = next(model.parameters()).device
         targets = self.adapter.targets()
         spec = self.prune_spec or next(iter(self.stack_specs.values()), None)
         if spec is None:
             return model, None
-        self.phase_times = {}
         self.importance_stats = []
         masks: Optional[Dict[str, torch.Tensor]] = None
-        for i, p_i in enumerate(iterative_sparsity_schedule(
-                parse_prune_spec(spec).sparsity, self.iteration), start=1):
-            t0 = time.time()
-            imp = self._importance(targets)
-            if masks is not None:
-                for k, v in imp.items():
-                    v.mul_(masks[k])
-            self.importance_stats.append({
-                "bytes": sum(v.numel() * v.element_size() for v in imp.values()),
-                "nonfinite": int(sum((~torch.isfinite(v)).sum() for v in imp.values()))})
-            ts = time.time()
-            masks = self._masks(imp, p_i)
-            del imp
-            synchronize(dev)
-            self.phase_times[f"iteration_{i}_select_s"] = time.time() - ts
-            for t in targets:
-                t.weight(model).mul_(t.local_slice(model, masks[t.name]))
-            synchronize(dev)
-            self.phase_times[f"iteration_{i}_s"] = time.time() - t0
-            if self.verbose:
-                print(f"target sparsity: {p_i:.4f}")
+        with recording(next(model.parameters()).device) as rec:
+            for i, p_i in enumerate(iterative_sparsity_schedule(
+                    parse_prune_spec(spec).sparsity, self.iteration), start=1):
+                with span("ecoflap.global.iteration", iteration=i):
+                    imp = self._importance(targets)
+                    if masks is not None:
+                        for k, v in imp.items():
+                            v.mul_(masks[k])
+                    self.importance_stats.append({
+                        "bytes": sum(v.numel() * v.element_size() for v in imp.values()),
+                        "nonfinite": int(sum((~torch.isfinite(v)).sum()
+                                             for v in imp.values()))})
+                    with span("ecoflap.global.select"):
+                        masks = self._masks(imp, p_i)
+                    del imp
+                    for t in targets:
+                        t.weight(model).mul_(t.local_slice(model, masks[t.name]))
+                if self.verbose:
+                    print(f"target sparsity: {p_i:.4f}")
+        self.phase_times = phase_times(rec)
         return model, None
 
 

@@ -27,22 +27,21 @@ Plain PyTorch (the JAX module is XLA only, no Pallas kernel). On the card a
 call with at least ``GRAPH_MIN_BLOCKS`` full column blocks and no n:m
 refresh captures the in-block sweep once as a CUDA graph and replays it per
 block: the same kernels on the same values, so the same bits, without the
-host's six launches a column (host-bound otherwise). ``times``, when
-given, receives the seconds spent in ``prepare_hinv`` and in the column sweep
-(after a device synchronise), which ``chip_smoke.py`` reports.
+host's six launches a column (host-bound otherwise). Each call's
+``prepare_hinv`` and column sweep are spans (``ecoflap.fine.prepare_hinv``,
+``ecoflap.fine.sweep``), and so is each graph's build inside the sweep
+(``ecoflap.fine.graph_build``, also counted; ``utils/profiling.py``).
 """
 
 from __future__ import annotations
 
-import time
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import torch
 
-from ecoflap_tpu_torch.core.device import synchronize
 from ecoflap_tpu_torch.pruning.wanda import floor_count
+from ecoflap_tpu_torch.utils.profiling import count, span
 
-Times = Optional[Dict[str, float]]
 # the fewest full-width column blocks for which one call graphs its sweep
 # (the capture costs about two eager block sweeps)
 GRAPH_MIN_BLOCKS = 3
@@ -208,15 +207,6 @@ def _graphed_sweep(k: int, rows: int, bsz: int, dtype: torch.dtype,
     return sweep
 
 
-def _add_time(times: Times, key: str, t0: float, ref: torch.Tensor) -> float:
-    if times is None:
-        return t0
-    synchronize(ref.device)
-    now = time.time()
-    times[key] = times.get(key, 0.0) + now - t0
-    return now
-
-
 def sparsegpt_prune_weight_group(
     ws: torch.Tensor,
     hs: torch.Tensor,
@@ -225,7 +215,6 @@ def sparsegpt_prune_weight_group(
     percdamp: float = 0.01,
     prune_n: int = 0,
     prune_m: int = 0,
-    times: Times = None,
 ) -> torch.Tensor:
     """Prune K same-shape (out, in) weights ``ws`` (K, out, in) with their
     Hessians ``hs`` (K, in, in) in one batched sweep; returns the pruned
@@ -233,34 +222,35 @@ def sparsegpt_prune_weight_group(
     ``sparsegpt_prune_weight``'s up to the batched products' reduction
     order (sparsegpt.py:203-306). The sweep runs in float32, or in float64
     when ``ws`` and ``hs`` are float64."""
-    t0 = time.time() if times is not None else 0.0
     orig_dtype = ws.dtype
-    w = ws.to(torch.promote_types(ws.dtype, torch.float32)).clone()
-    k, rows, cols = w.shape
-    hinv, dead = prepare_hinv(hs, percdamp)
-    w.masked_fill_(dead[:, None, :], 0.0)
-    t0 = _add_time(times, "prepare_hinv_s", t0, w)
-    graphed = None
-    if w.is_cuda and prune_n == 0 and cols // blocksize >= GRAPH_MIN_BLOCKS:
-        graphed = _graphed_sweep(k, rows, blocksize, w.dtype, w.device)
-    for i1 in range(0, cols, blocksize):
-        i2 = min(i1 + blocksize, cols)
-        w1 = w[..., i1:i2].clone()
-        hinv1 = hinv[:, i1:i2, i1:i2]
-        if prune_n == 0:
-            sal = w1 ** 2 / torch.diagonal(hinv1, dim1=-2, dim2=-1)[:, None, :] ** 2
-            mask1 = torch.stack([_mask_per_tensor(sal[j], float(sparsities[j]))
-                                 for j in range(k)])
-        else:
-            mask1 = torch.zeros(w1.shape, dtype=torch.bool, device=w.device)
-        if graphed is not None and i2 - i1 == blocksize:
-            q1, err1 = graphed(w1, hinv1, mask1)
-        else:
-            q1, err1 = _sweep_block(w1, hinv1, mask1, prune_n, prune_m)
-        w[..., i1:i2] = q1
-        if i2 < cols:
-            w[..., i2:] -= torch.bmm(err1, hinv[:, i1:i2, i2:])
-    _add_time(times, "sweep_s", t0, w)
+    with span("ecoflap.fine.prepare_hinv"):
+        w = ws.to(torch.promote_types(ws.dtype, torch.float32)).clone()
+        k, rows, cols = w.shape
+        hinv, dead = prepare_hinv(hs, percdamp)
+        w.masked_fill_(dead[:, None, :], 0.0)
+    with span("ecoflap.fine.sweep"):
+        graphed = None
+        if w.is_cuda and prune_n == 0 and cols // blocksize >= GRAPH_MIN_BLOCKS:
+            with span("ecoflap.fine.graph_build"):
+                graphed = _graphed_sweep(k, rows, blocksize, w.dtype, w.device)
+            count("ecoflap.fine.graph_build")
+        for i1 in range(0, cols, blocksize):
+            i2 = min(i1 + blocksize, cols)
+            w1 = w[..., i1:i2].clone()
+            hinv1 = hinv[:, i1:i2, i1:i2]
+            if prune_n == 0:
+                sal = w1 ** 2 / torch.diagonal(hinv1, dim1=-2, dim2=-1)[:, None, :] ** 2
+                mask1 = torch.stack([_mask_per_tensor(sal[j], float(sparsities[j]))
+                                     for j in range(k)])
+            else:
+                mask1 = torch.zeros(w1.shape, dtype=torch.bool, device=w.device)
+            if graphed is not None and i2 - i1 == blocksize:
+                q1, err1 = graphed(w1, hinv1, mask1)
+            else:
+                q1, err1 = _sweep_block(w1, hinv1, mask1, prune_n, prune_m)
+            w[..., i1:i2] = q1
+            if i2 < cols:
+                w[..., i2:] -= torch.bmm(err1, hinv[:, i1:i2, i2:])
     return w.to(orig_dtype)
 
 
@@ -272,11 +262,10 @@ def sparsegpt_prune_weight(
     percdamp: float = 0.01,
     prune_n: int = 0,
     prune_m: int = 0,
-    times: Times = None,
 ) -> torch.Tensor:
     """Prune one (out, in) weight with the SparseGPT OBS sweep
     (SparseGPT.fasterprune, sparsegpt_pruner.py:84-218); returns the pruned
     weight in ``w``'s dtype."""
     return sparsegpt_prune_weight_group(
         w[None], h[None], [sparsity], blocksize=blocksize, percdamp=percdamp,
-        prune_n=prune_n, prune_m=prune_m, times=times)[0]
+        prune_n=prune_n, prune_m=prune_m)[0]

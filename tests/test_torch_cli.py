@@ -65,8 +65,9 @@ def test_prune_spec_alone_prunes_as_the_jax_cli(tmp_path, ckpt):
         f"pruned_checkpoint/{want['job_id']}.pth",
         f"training_statistics/{want['job_id']}.yaml"]
     assert_same_pth(want, got)
-    assert set(got["phase_times"]) == {f"fine_{s}_s" for s in (
-        "visual_encoder.blocks", "t5_model.encoder.block", "t5_model.decoder.block")}
+    assert set(got["phase_times"]) == {f"fine_{s}_{part}" for s in (
+        "visual_encoder.blocks", "t5_model.encoder.block", "t5_model.decoder.block")
+        for part in ("s", "collect_s", "prune_s", "reforward_s")}
 
 
 def test_coarse_only_writes_the_jax_cli_yaml(tmp_path, ckpt):

@@ -1,9 +1,9 @@
 """The port's infrastructure against the JAX package's (mirrors
 tests/test_infra.py): LR schedules at every step, the optimizer's decay
-mask, the loaders, the metric logger (synced over 2 gloo ranks), timing and
-tracing, the checkpoints and the training runners; the train processors and
+mask, the loaders, the metric logger (synced over 2 gloo ranks), the
+checkpoints and the training runners; the train processors and
 RandAugment bit for bit; and the prune CLI's ``--stacks`` against the JAX
-CLI's."""
+CLI's. Spans, counters and traces are in test_torch_profiling.py."""
 
 import json
 
@@ -149,30 +149,6 @@ def test_smoothed_value_syncs_over_two_gloo_ranks(tmp_path):
         assert r["global_avg"] == pytest.approx(np.mean(flat))
         assert r["avg"] == pytest.approx(np.mean(vs))
         assert r["logger_global"] == pytest.approx((values[0][0] + values[1][0]) / 2)
-
-
-def test_timer_print_time_and_trace(capsys, tmp_path):
-    from ecoflap_tpu_torch.utils.profiling import Timer, print_time, trace
-
-    t = Timer()
-    with t("phase_a"):
-        pass
-    with t("phase_a"):
-        pass
-    assert "phase_a" in t.summary() and t.totals["phase_a"] >= 0
-
-    @print_time
-    def f():
-        return 3
-
-    assert f() == 3
-    assert "f spent" in capsys.readouterr().out
-    with trace(str(tmp_path), name="probe"):
-        torch.ones(8).sum()
-    trace_json = json.loads((tmp_path / "probe.json").read_text())
-    assert any(e.get("name") == "probe" for e in trace_json["traceEvents"])
-    with trace(None):
-        pass
 
 
 def test_runner_checkpoint_roundtrip(tmp_path):

@@ -62,9 +62,10 @@ def test_two_stage_prune_gives_the_jax_masks(pruned):
     for name, (want, got) in patterns.items():
         np.testing.assert_array_equal(got, want, err_msg=name)
     assert abs(tp.check_sparsity() - 0.5) < 0.02
-    assert set(tp.phase_times) == {"coarse_s", "fine_visual_encoder.blocks_s",
-                                   "fine_t5_model.encoder.block_s",
-                                   "fine_t5_model.decoder.block_s"}
+    assert set(tp.phase_times) == {"coarse_s"} | {
+        part for s in STACK_SPECS for part in (
+            f"coarse_{s}_lanes_s", f"coarse_{s}_lanes_n", f"fine_{s}_s",
+            f"fine_{s}_collect_s", f"fine_{s}_prune_s", f"fine_{s}_reforward_s")}
 
 
 def test_one_sparsity_dict_gives_equal_masks():
