@@ -15,7 +15,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
      kernels at the LLaMA calibration shape, phase 13's window at batch 1,
      a short one and one whose last 128-row tile is half full (S % 128 == 64), their causality, strided
      inputs, the backward's determinism, and refusals of what they do not
-     take;
+     take; the SparseGPT sweep kernel against ``_sweep_block`` bit for bit
+     (``SWEEP_CASES``: one and several lanes, unstructured and n:m, the
+     ViT-g and T5 row counts, a ragged block, a NaN lane, tied saliences,
+     float64);
   3. kernel timing (CUDA events) beside each kernel's bound, its plain
      version and, where one exists, the PyTorch library call;
   4. the BLIP-2 path: ``ecoflap_tpu_torch.cli.prune.main`` prunes BLIP-2
@@ -44,12 +47,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
      samples (the reference scores 128), counting kernel launches (none);
   8. the BLIP-2 SparseGPT path: BLIP-2 FlanT5-XL with the flags of
      scripts/blip2/ecoflap_sparsegpt_zeroth.py and ``--sparsity_dict`` of
-     phase 4's YAML (no coarse stage, no kernel launch), each block's zero
-     share against its ratio, the fine stage's wall split per stack; then
-     ViT-g block 0 at the same init and calibration, pruned by SparseGPT on
-     the card and on the CPU from one float32 Hessian: the Hessians'
-     conditioning and the two sides' reconstruction errors, and on the card
-     the CUDA-graphed column sweep against the eager one, bit for bit;
+     phase 4's YAML (no coarse stage; one sweep kernel launch a column
+     block of each weight group, counted), each block's zero share against
+     its ratio, the fine stage's wall split per stack; then ViT-g block 0 at
+     the same init and calibration, pruned by SparseGPT on the card and on
+     the CPU from one float32 Hessian: the Hessians' conditioning and the
+     two sides' reconstruction errors, and on the card the prune through the
+     sweep kernel against the prune through ``_sweep_block``, bit for bit;
   9. the port on the card against the port on the CPU: tiny BLIP-2 in f32,
      and a small LLaMA in bf16 on the card (flash kernels) against f32 on
      the CPU (plain attention): logits, losses and first-order sums, the
@@ -179,6 +183,7 @@ two float32 orders differ by more than its ulp). The line before the last holds 
 """
 
 import argparse
+import contextlib
 import copy
 import gc
 import json
@@ -1032,6 +1037,132 @@ def time_flash_bwd(A, torch, shape):
             "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
 
 
+# the SparseGPT sweep kernel against _sweep_block (phase 2): (label, K, rows,
+# weight columns, block [i1, i2), prune_n, prune_m, dtype, kind); kind
+# "nan_lane": lane 0's Hinv is NaN, as a failed Hessian leaves it; "ties":
+# weights on a 0.5 grid under Hinv = I / 2, so n:m saliences tie
+SWEEP_CASES = [
+    ("ViT-g qkv rows", 1, 4224, 384, 128, 256, 0, 0, "float32", "random"),
+    ("ViT-g proj and fc2 rows", 1, 1408, 384, 128, 256, 0, 0, "float32", "random"),
+    ("ViT-g fc1 rows", 1, 6144, 384, 128, 256, 0, 0, "float32", "random"),
+    ("T5 q/k/v/o group", 4, 2048, 384, 128, 256, 0, 0, "float32", "random"),
+    ("T5 wi_0/wi_1 group", 2, 5120, 384, 128, 256, 0, 0, "float32", "random"),
+    ("2:4, two lanes", 2, 1408, 384, 128, 256, 2, 4, "float32", "random"),
+    ("2:4 at the T5 width", 1, 5120, 384, 0, 128, 2, 4, "float32", "random"),
+    ("ragged last block, B = 44", 2, 1408, 300, 256, 300, 0, 0, "float32", "random"),
+    ("ragged last block, B = 44, 2:4", 2, 1408, 300, 256, 300, 2, 4, "float32", "random"),
+    ("a NaN lane beside a finite one", 2, 1408, 384, 128, 256, 0, 0, "float32", "nan_lane"),
+    ("a NaN lane beside a finite one, 2:4", 2, 1408, 384, 128, 256, 2, 4, "float32",
+     "nan_lane"),
+    ("tied saliences, 2:4", 1, 512, 256, 0, 128, 2, 4, "float32", "ties"),
+    ("tied saliences, 16:32", 1, 512, 256, 0, 128, 16, 32, "float32", "ties"),
+    ("float64, two lanes", 2, 1408, 384, 128, 256, 0, 0, "float64", "random"),
+    ("float64, 2:4", 2, 1408, 384, 128, 256, 2, 4, "float64", "random"),
+]
+SWEEP_TIMING_ROWS = (1408, 4224, 6144)  # ViT-g's four linears' out widths
+
+
+def sweep_inputs(torch, k, rows, cols, i1, i2, prune_n, dtype, kind, seed):
+    """(w, hinv1, mask1) of one column block as the pruning path makes them:
+    Hinv from ``prepare_hinv`` of a random Gram matrix, the 50% per-block
+    mask from the saliency (None with n:m)."""
+    from ecoflap_tpu_torch.pruning import sparsegpt as sg
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn(k, rows, cols, generator=g, device="cuda", dtype=dt)
+    if kind == "ties":
+        w = (w * 2).round() / 2
+        hinv = 0.5 * torch.eye(cols, device="cuda", dtype=dt).expand(k, cols, cols)
+    else:
+        x = torch.randn(k, 2 * cols, cols, generator=g, device="cuda", dtype=dt)
+        hinv = sg.prepare_hinv((1.0 / cols) * x.mT @ x)[0]
+    hinv = hinv.contiguous()
+    if kind == "nan_lane":
+        hinv[0] = float("nan")
+    hinv1 = hinv[:, i1:i2, i1:i2]
+    mask1 = None
+    if prune_n == 0:
+        w1 = w[..., i1:i2]
+        sal = w1 ** 2 / torch.diagonal(hinv1, dim1=-2, dim2=-1)[:, None, :] ** 2
+        mask1 = torch.stack([sg._mask_per_tensor(sal[j], 0.5) for j in range(k)])
+    return w, hinv1, mask1
+
+
+def unlike_bits(torch, a, b):
+    """Entries of a and b whose bits differ, NaN counting as equal to NaN."""
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}[a.dtype]
+    return ~((a.view(ints) == b.view(ints)) | (a.isnan() & b.isnan()))
+
+
+def check_sparsegpt_sweep(S, torch):
+    """Each SWEEP_CASES block swept by the kernel (on a copy of the weight,
+    in place) and by ``_sweep_block`` on the card. Returns {label: (Q1
+    entries unlike, Err1 entries unlike, largest |difference| among them,
+    the columns outside the block untouched, a second launch the same)};
+    the caller logs them all, then gates on zero."""
+    from ecoflap_tpu_torch.pruning import sparsegpt as sg
+
+    out = {}
+    for seed, (label, k, rows, cols, i1, i2, n, m, dtype, kind) in enumerate(SWEEP_CASES):
+        w, hinv1, mask1 = sweep_inputs(torch, k, rows, cols, i1, i2, n, dtype, kind, seed)
+        plain_mask = (mask1.clone() if mask1 is not None
+                      else torch.zeros(k, rows, i2 - i1, dtype=torch.bool, device="cuda"))
+        q, e = sg._sweep_block(w[..., i1:i2].clone(), hinv1, plain_mask, n, m)
+        got, again = w.clone(), w.clone()
+        err = S.sparsegpt_sweep(got[..., i1:i2], hinv1, mask1, n, m)
+        err2 = S.sparsegpt_sweep(again[..., i1:i2], hinv1, mask1, n, m)
+        torch.cuda.synchronize()
+        bad_q, bad_e = unlike_bits(torch, got[..., i1:i2], q), unlike_bits(torch, err, e)
+        diffs = [(a - b)[bad].abs().max().item() for a, b, bad in
+                 ((got[..., i1:i2], q, bad_q), (err, e, bad_e)) if bad.any()]
+        outside = (torch.equal(got[..., :i1], w[..., :i1])
+                   and torch.equal(got[..., i2:], w[..., i2:]))
+        repeat = not (unlike_bits(torch, got, again).any()
+                      or unlike_bits(torch, err, err2).any())
+        out[label] = (int(bad_q.sum()), int(bad_e.sum()), max(diffs, default=0.0),
+                      outside, repeat)
+    return out
+
+
+def time_sparsegpt_sweep(S, torch, rows, bsz=128):
+    """One 128-column block of a (rows, 1408) float32 weight with its 50%
+    mask (K = 1, ViT-g's width): the kernel by its C entry, its arguments
+    prepared once, and through the wrapper (with Err1's allocation), then
+    the plain ``_sweep_block``. Repeated launches sweep the block's Q1
+    again, which takes the same time. The bound counts W read, Q1 and Err1
+    written (4 bytes each), the mask (1 byte) and Hinv1's upper triangle
+    once; the operations, 2 a multiply-add and 1 a division."""
+    import ctypes
+
+    from ecoflap_tpu_torch.pruning import sparsegpt as sg
+
+    w, hinv1, mask1 = sweep_inputs(torch, 1, rows, 1408, 0, bsz, 0, "float32", "random", 11)
+    w1 = w[..., :bsz]
+    plain = time_cuda(torch, lambda: sg._sweep_block(w1.clone(), hinv1, mask1.clone(), 0, 0),
+                      5)
+    err = torch.empty(1, rows, bsz, device="cuda")
+    args = (ctypes.c_void_p(w1.data_ptr()), 0, 1, rows, bsz, w1.stride(0), w1.stride(1),
+            ctypes.c_void_p(hinv1.data_ptr()), hinv1.stride(0), hinv1.stride(1),
+            ctypes.c_void_p(mask1.data_ptr()), ctypes.c_void_p(err.data_ptr()), 0, 0,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    entry = S._lib().ecoflap_sparsegpt_sweep
+
+    def launch():
+        rc = entry(*args)
+        if rc != 0:
+            raise RuntimeError(f"ecoflap_sparsegpt_sweep launch failed: cudaError_t {rc}")
+
+    k1 = time_cuda(torch, launch, 200)
+    wrapper = time_cuda(torch, lambda: S.sparsegpt_sweep(w1, hinv1, mask1), 200)
+    k2 = time_cuda(torch, launch, 200)
+    nbytes = rows * bsz * (4 + 4 + 4 + 1) + 4 * bsz * (bsz + 1) // 2
+    ops = rows * (bsz * (bsz - 1) + bsz)
+    return {"shape": [rows, bsz], "ms": (k1 + k2) / 2, "wrapper_ms": wrapper,
+            "plain_ms": plain, "ops_bound_ms": ops / F32_OPS_PER_S * 1e3,
+            "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
 def bound(t):
     by = "bytes" if t["bytes_bound_ms"] >= t["ops_bound_ms"] else "operations"
     return max(t["bytes_bound_ms"], t["ops_bound_ms"]), by
@@ -1354,18 +1485,36 @@ def vit_block_sparsegpt(torch, ratio):
         torch, block.get_submodule(local).weight.to(torch.float32),
         (2.0 / NUM_SAMPLES) * stats[local].to(torch.float32), ratio, local)
         for local in eva_vit.LINEAR_NAMES}
-    assert all(r["graphed"] for r in out.values()), "ViT-g block 0: a sweep not graphed"
     del vit, stats
     torch.cuda.empty_cache()
     return out
 
 
+@contextlib.contextmanager
+def plain_sweep_on_card(torch, sg):
+    """The pruning code's in-block sweep on the card by ``_sweep_block``,
+    the kernel's plain version, in place of the kernel."""
+    def plain(w1, hinv1, mask1, prune_n, prune_m):
+        if mask1 is None:
+            mask1 = torch.zeros(w1.shape, dtype=torch.bool, device=w1.device)
+        q1, err1 = sg._sweep_block(w1.clone(), hinv1, mask1, prune_n, prune_m)
+        w1.copy_(q1)
+        return err1
+
+    kernel, sg.sparsegpt_sweep = sg.sparsegpt_sweep, plain
+    try:
+        yield
+    finally:
+        sg.sparsegpt_sweep = kernel
+
+
 def sparsegpt_card_vs_cpu(torch, w, h, ratio, name):
     """One weight ``w`` pruned by SparseGPT from one float32 Hessian ``h``
     (both on the card) on the card and on the CPU (vit_block_sparsegpt's
-    readings and gates); where the card graphs the column sweep (``graphed``),
-    the graphed sweep against the eager one, alone and in a group of two
-    lanes, bit for bit."""
+    readings and gates); on the card, the prune through the sweep kernel
+    (one launch a column block, counted) against the prune through
+    ``_sweep_block``, alone and in a group of two lanes, bit for bit."""
+    from ecoflap_tpu_torch.ops import sparsegpt_sweep as S
     from ecoflap_tpu_torch.pruning import sparsegpt as sg
 
     ev = torch.linalg.eigvalsh(h.double())
@@ -1377,16 +1526,14 @@ def sparsegpt_card_vs_cpu(torch, w, h, ratio, name):
                 sg.sparsegpt_prune_weight_group(torch.stack([w, w]), torch.stack([h, h]),
                                                 [ratio, ratio]))
 
+    launches = S.sparsegpt_sweep.launches
     card, group = both_sweeps()
-    graphed = w.shape[1] // 128 >= sg.GRAPH_MIN_BLOCKS
-    if graphed:
-        graph_min, sg.GRAPH_MIN_BLOCKS = sg.GRAPH_MIN_BLOCKS, w.shape[1] + 1
-        try:
-            eager, eager_group = both_sweeps()
-        finally:
-            sg.GRAPH_MIN_BLOCKS = graph_min
-        assert torch.equal(card, eager) and torch.equal(group, eager_group), \
-            f"{name}: the graphed SparseGPT sweep is not the eager one bit for bit"
+    launches = S.sparsegpt_sweep.launches - launches
+    assert launches == 2 * -(-w.shape[1] // 128), (name, launches)
+    with plain_sweep_on_card(torch, sg):
+        plain, plain_group = both_sweeps()
+    assert torch.equal(card, plain) and torch.equal(group, plain_group), \
+        f"{name}: the prune through the sweep kernel is not the plain one bit for bit"
     cpu = sg.sparsegpt_prune_weight(w.cpu(), h.cpu(), ratio).cuda()
     assert torch.isfinite(card).all() and torch.isfinite(cpu).all(), name
     hd, wd = h.double(), w.double()
@@ -1400,7 +1547,7 @@ def sparsegpt_card_vs_cpu(torch, w, h, ratio, name):
          "mask_share": ((card == 0) != (cpu == 0)).float().mean().item(),
          "rel_l2": ((card - cpu).norm() / cpu.norm()).item(),
          "recon_card": recon(card), "recon_cpu": recon(cpu),
-         "recon_mask_only": recon(w * (card != 0)), "graphed": graphed}
+         "recon_mask_only": recon(w * (card != 0)), "kernel_launches": launches}
     assert abs(r["recon_card"] / r["recon_cpu"] - 1) <= SPARSEGPT_XL_RECON_RTOL, (name, r)
     assert max(r["recon_card"], r["recon_cpu"]) < r["recon_mask_only"], (name, r)
     return r
@@ -1430,6 +1577,19 @@ def check_sparsegpt_prune(torch, res, sd):
             worst = max(worst, gap)
     assert abs(res["prunable_sparsity"] - 0.5) <= 0.01, res["prunable_sparsity"]
     return worst
+
+
+def sweep_blocks(model):
+    """{stack: column blocks of 128 over each block's same-shape weight
+    groups}: the sweep kernel's launches in a BLIP-2 SparseGPT prune."""
+    from ecoflap_tpu_torch.models import blip2
+    from ecoflap_tpu_torch.pruning.engine import shape_groups
+
+    ad = blip2.make_adapter(model)
+    return {stack.name: sum(-(-block.get_submodule(group[0]).weight.shape[1] // 128)
+                            for block in stack.blocks(ad.model)
+                            for group in shape_groups(block, stack.linear_names))
+            for stack in ad.stacks}
 
 
 def sparsegpt_split(phase_times):
@@ -3292,6 +3452,7 @@ def main(argv=None) -> int:
     from ecoflap_tpu_torch.ops import attention as A
     from ecoflap_tpu_torch.ops import build
     from ecoflap_tpu_torch.ops import perturb as P
+    from ecoflap_tpu_torch.ops import sparsegpt_sweep as S
 
     kernels = {"perturb_inplace": P.perturb_inplace, "perturb": P.perturb,
                "flash_attention": A.flash_attention,
@@ -3367,6 +3528,13 @@ def main(argv=None) -> int:
         "change) and backward (rows >= r exactly 0 when dO is 0 there); an input "
         "that requires grad is served through the kernels; ineligible shapes and "
         "float32 are refused, forward and backward")
+    sweep = check_sparsegpt_sweep(S, torch)
+    for label, (bad_q, bad_e, diff, outside, repeat) in sweep.items():
+        log(f"sparsegpt_sweep vs _sweep_block, {label}: Q1 entries unlike {bad_q}, "
+            f"Err1 entries unlike {bad_e} (largest |difference| {diff:.3e}); columns "
+            f"outside the block untouched {outside}; a second launch the same {repeat}")
+    unlike = {k: r for k, r in sweep.items() if r[:3] != (0, 0, 0.0) or not all(r[3:])}
+    assert not unlike, f"the SparseGPT sweep kernel is not _sweep_block bit for bit: {unlike}"
 
     phase_ended(2)
     # -- 3. timing --------------------------------------------------------------
@@ -3447,6 +3615,13 @@ def main(argv=None) -> int:
         f"(forward + backward {bwd_t['library_fwd_bwd_ms']:.4f} ms)")
     gc.collect()
     torch.cuda.empty_cache()
+    for rows in SWEEP_TIMING_ROWS:
+        t = time_sparsegpt_sweep(S, torch, rows)
+        b, by = bound(t)
+        log(f"sparsegpt_sweep f32 one block of {rows}x128: kernel {t['ms'] * 1e3:.2f} us "
+            f"(through the wrapper {t['wrapper_ms'] * 1e3:.2f} us) | bound {b * 1e3:.2f} us "
+            f"({by}; ops {t['ops_bound_ms'] * 1e3:.2f}, bytes {t['bytes_bound_ms'] * 1e3:.2f})"
+            f" | share of bound {b / t['ms']:.3f} | plain {t['plain_ms']:.3f} ms")
     if args.kernels_only:
         log(f"chip_smoke --kernels-only: {time.time() - t_start:.1f} s in all")
         return 0
@@ -3572,12 +3747,20 @@ def main(argv=None) -> int:
             "--num_samples", str(NUM_SAMPLES), "--batch_size", str(BATCH_SIZE),
             "--sparsity_dict", zeroth_dict, "--calib", "synthetic",
             "--output_dir", out_dir]
+    sweeps = S.sparsegpt_sweep.launches
     res, wall, sgpt_counts = run_path(cli, kernels, argv)
+    sweeps = S.sparsegpt_sweep.launches - sweeps
     log_path("BLIP-2 SparseGPT", res, wall, sgpt_counts)
     assert not any(sgpt_counts.values()), sgpt_counts
+    want_sweeps = sweep_blocks(res["model"])
+    counted = {k: v for k, v in res["phase_times"].items() if k.endswith("_sweep_kernels_n")}
+    assert sweeps == sum(counted.values()) == sum(want_sweeps.values()), \
+        (sweeps, counted, want_sweeps)
     block_err = check_sparsegpt_prune(torch, res, read_flat_yaml(zeroth_dict))
     split = sparsegpt_split(res["phase_times"])
-    log(f"BLIP-2 SparseGPT path checks pass: no kernel launch, every weight finite, "
+    log(f"BLIP-2 SparseGPT path checks pass: no perturbation or flash launch, "
+        f"{sweeps} sweep kernel launches, one a column block of each weight group ("
+        + ", ".join(f"{k} {v}" for k, v in want_sweeps.items()) + "), every weight finite, "
         f"every block's zero share within {block_err:.4f} of its ratio (gate "
         f"{SPARSEGPT_BLOCK_TOL}), global sparsity {res['prunable_sparsity']}, peak "
         f"{res['peak_gib']:.2f} GiB | fine wall split: " + "; ".join(
@@ -3593,8 +3776,9 @@ def main(argv=None) -> int:
     vit_ratio = sd["visual_encoder.blocks.0.attn.qkv.weight"]
     for local, r in vit_block_sparsegpt(torch, vit_ratio).items():
         log(f"ViT-g block 0 {local} at phase 8's init, ratio {vit_ratio:.4f}, SparseGPT "
-            f"card vs CPU from one f32 H (on the card the graphed sweep equals the eager "
-            f"one bit for bit, alone and in 2 lanes): H eigenvalue ratio {r['eig_ratio']:.3e}, "
+            f"card vs CPU from one f32 H (on the card through {r['kernel_launches']} sweep "
+            f"kernel launches, bit for bit the prune through _sweep_block, alone and in 2 "
+            f"lanes): H eigenvalue ratio {r['eig_ratio']:.3e}, "
             f"undamped Cholesky fails (card, CPU) {r['undamped_cholesky_fails']}, mask "
             f"mismatch share {r['mask_share']:.3e}, weights relative L2 {r['rel_l2']:.3e} | "
             f"reconstruction error card {r['recon_card']:.6f}, CPU {r['recon_cpu']:.6f} "

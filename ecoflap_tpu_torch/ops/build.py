@@ -27,7 +27,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("perturb", "flash_attn", "flash_attn_bwd")
+SOURCES = ("perturb", "flash_attn", "flash_attn_bwd", "sparsegpt_sweep")
 
 
 def _nvcc() -> str:

@@ -51,14 +51,13 @@ SPAN_KEYS = {
     "ecoflap.fine.prune": "fine_{stack}_prune_s",
     "ecoflap.fine.prepare_hinv": "fine_{stack}_prepare_hinv_s",
     "ecoflap.fine.sweep": "fine_{stack}_sweep_s",
-    "ecoflap.fine.graph_build": "fine_{stack}_graph_build_s",
     "ecoflap.fine.reforward": "fine_{stack}_reforward_s",
     "ecoflap.global.iteration": "iteration_{iteration}_s",
     "ecoflap.global.select": "iteration_{iteration}_select_s",
 }
 COUNT_KEYS = {
     "ecoflap.coarse.lanes": "coarse_{stack}_lanes_n",
-    "ecoflap.fine.graph_build": "fine_{stack}_graph_builds_n",
+    "ecoflap.fine.sweep_kernel": "fine_{stack}_sweep_kernels_n",
 }
 
 
@@ -223,11 +222,11 @@ class TwoStagePruner:
         (``coarse_s``) and each stack's fine stage (``fine_<stack>_s``)
         with its statistics passes, pruning and re-forwards
         (``_collect_s``, ``_prune_s``, ``_reforward_s``; SparseGPT's pruning
-        holds ``_prepare_hinv_s`` and ``_sweep_s``, the sweep its CUDA graph
-        builds, ``_graph_build_s``); the lane ensemble's forwards per stack
-        (``coarse_<stack>_lanes_s``). Counts end in ``_n``: the lane
-        forwards (``coarse_<stack>_lanes_n``) and the graph builds
-        (``fine_<stack>_graph_builds_n``). A key is there when its phase
+        holds ``_prepare_hinv_s`` and ``_sweep_s``); the lane ensemble's
+        forwards per stack (``coarse_<stack>_lanes_s``). Counts end in
+        ``_n``: the lane forwards (``coarse_<stack>_lanes_n``) and the
+        sweep kernel's launches on the card
+        (``fine_<stack>_sweep_kernels_n``). A key is there when its phase
         ran."""
         model = self.adapter.model
         t0 = time.time()

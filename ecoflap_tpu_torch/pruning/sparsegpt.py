@@ -23,28 +23,26 @@ column. ``sparsegpt_prune_weight_group`` sweeps K same-shape weights in one
 batched pass (``torch.bmm``): lanes never mix, so a lane whose Hessian fails
 leaves the others exact.
 
-Plain PyTorch (the JAX module is XLA only, no Pallas kernel). On the card a
-call with at least ``GRAPH_MIN_BLOCKS`` full column blocks and no n:m
-refresh captures the in-block sweep once as a CUDA graph and replays it per
-block: the same kernels on the same values, so the same bits, without the
-host's six launches a column (host-bound otherwise). Each call's
-``prepare_hinv`` and column sweep are spans (``ecoflap.fine.prepare_hinv``,
-``ecoflap.fine.sweep``), and so is each graph's build inside the sweep
-(``ecoflap.fine.graph_build``, also counted; ``utils/profiling.py``).
+On the card the in-block sweep is one launch of a hand-written CUDA kernel
+per column block (``ops/sparsegpt_sweep.py``, ``csrc/sparsegpt_sweep.cu``):
+every row runs its 128-step chain in registers, writes Q1 over the block's
+columns of the weight in place and Err1 to a buffer, n:m masks included;
+``_sweep_block`` is its plain version, which a CPU tensor takes and which
+gives the kernel's bits on the card. The cross-block update stays one
+``torch.bmm``. Each call's ``prepare_hinv`` and column sweep are spans
+(``ecoflap.fine.prepare_hinv``, ``ecoflap.fine.sweep``), and each kernel
+launch is counted (``ecoflap.fine.sweep_kernel``; ``utils/profiling.py``).
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ecoflap_tpu_torch.ops.sparsegpt_sweep import sparsegpt_sweep
 from ecoflap_tpu_torch.pruning.wanda import floor_count
 from ecoflap_tpu_torch.utils.profiling import count, span
-
-# the fewest full-width column blocks for which one call graphs its sweep
-# (the capture costs about two eager block sweeps)
-GRAPH_MIN_BLOCKS = 3
 
 
 def accumulate_hessian(h: torch.Tensor, nsamples: float,
@@ -180,31 +178,20 @@ def _sweep_block(w1: torch.Tensor, hinv1: torch.Tensor, mask1: torch.Tensor,
     return q1, err1
 
 
-def _graphed_sweep(k: int, rows: int, bsz: int, dtype: torch.dtype,
-                   device: torch.device):
-    """``_sweep_block`` without n:m refresh on (k, rows, bsz) blocks as one
-    CUDA graph. Returns sweep(w1, hinv1, mask1) -> (Q1, Err1); Q1 and Err1
-    are the graph's own buffers, overwritten by the next call."""
-    w1 = torch.zeros((k, rows, bsz), dtype=dtype, device=device)
-    hinv1 = torch.eye(bsz, dtype=dtype, device=device).expand(k, bsz, bsz).contiguous()
-    mask1 = torch.zeros((k, rows, bsz), dtype=torch.bool, device=device)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):  # a warm-up run before the capture
-        _sweep_block(w1.clone(), hinv1, mask1, 0, 0)
-    torch.cuda.current_stream(device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        q1, err1 = _sweep_block(w1, hinv1, mask1, 0, 0)
-
-    def sweep(w, hinv, mask):
-        w1.copy_(w)
-        hinv1.copy_(hinv)
-        mask1.copy_(mask)
-        graph.replay()
-        return q1, err1
-
-    return sweep
+def _sweep_block_(w1: torch.Tensor, hinv1: torch.Tensor, mask1: Optional[torch.Tensor],
+                  prune_n: int, prune_m: int) -> torch.Tensor:
+    """Sweep one column block in place (``w1``, a view of the weight,
+    becomes Q1) and return Err1: the kernel for a CUDA tensor, else
+    ``_sweep_block``. ``mask1`` is None with n:m."""
+    if w1.is_cuda:
+        err1 = sparsegpt_sweep(w1, hinv1, mask1, prune_n, prune_m)
+        count("ecoflap.fine.sweep_kernel")
+        return err1
+    if mask1 is None:
+        mask1 = torch.zeros(w1.shape, dtype=torch.bool, device=w1.device)
+    q1, err1 = _sweep_block(w1.clone(), hinv1, mask1, prune_n, prune_m)
+    w1.copy_(q1)
+    return err1
 
 
 def sparsegpt_prune_weight_group(
@@ -227,28 +214,19 @@ def sparsegpt_prune_weight_group(
         w = ws.to(torch.promote_types(ws.dtype, torch.float32)).clone()
         k, rows, cols = w.shape
         hinv, dead = prepare_hinv(hs, percdamp)
+        hinv = hinv.contiguous()  # the kernel reads rows of Hinv1 (a no-op as a rule)
         w.masked_fill_(dead[:, None, :], 0.0)
     with span("ecoflap.fine.sweep"):
-        graphed = None
-        if w.is_cuda and prune_n == 0 and cols // blocksize >= GRAPH_MIN_BLOCKS:
-            with span("ecoflap.fine.graph_build"):
-                graphed = _graphed_sweep(k, rows, blocksize, w.dtype, w.device)
-            count("ecoflap.fine.graph_build")
         for i1 in range(0, cols, blocksize):
             i2 = min(i1 + blocksize, cols)
-            w1 = w[..., i1:i2].clone()
+            w1 = w[..., i1:i2]
             hinv1 = hinv[:, i1:i2, i1:i2]
+            mask1 = None
             if prune_n == 0:
                 sal = w1 ** 2 / torch.diagonal(hinv1, dim1=-2, dim2=-1)[:, None, :] ** 2
                 mask1 = torch.stack([_mask_per_tensor(sal[j], float(sparsities[j]))
                                      for j in range(k)])
-            else:
-                mask1 = torch.zeros(w1.shape, dtype=torch.bool, device=w.device)
-            if graphed is not None and i2 - i1 == blocksize:
-                q1, err1 = graphed(w1, hinv1, mask1)
-            else:
-                q1, err1 = _sweep_block(w1, hinv1, mask1, prune_n, prune_m)
-            w[..., i1:i2] = q1
+            err1 = _sweep_block_(w1, hinv1, mask1, prune_n, prune_m)
             if i2 < cols:
                 w[..., i2:] -= torch.bmm(err1, hinv[:, i1:i2, i2:])
     return w.to(orig_dtype)

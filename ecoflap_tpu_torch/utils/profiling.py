@@ -8,8 +8,8 @@
   for one prune. On a CUDA device a span records two
   ``torch.cuda.Event(enable_timing=True)`` on the current stream (from a
   pool the recordings share) and nothing else: no synchronise, no
-  ``.item()``, no copy to the host; while the stream captures a CUDA graph
-  it records no event. On the CPU it reads ``time.perf_counter``. The
+  ``.item()``, no copy to the host. On the CPU it reads
+  ``time.perf_counter``. The
   recording resolves its spans once, when it closes: one synchronise of
   the device, then totals by name and tags, in seconds on the device's
   clock (``seconds``; ``self_seconds`` less the children's) and counts
@@ -110,8 +110,6 @@ class Recording:
     def _mark(self):
         if not self.cuda:
             return time.perf_counter()
-        if torch.cuda.is_current_stream_capturing():
-            return None
         ev = self._pool.pop() if self._pool else torch.cuda.Event(enable_timing=True)
         ev.record(torch.cuda.current_stream(self.device))
         return ev
@@ -126,8 +124,7 @@ class Recording:
 
     def _exit(self, s: _Span) -> None:
         self._stack.pop()
-        if s.start is not None:
-            s.end = self._mark()
+        s.end = self._mark()
 
     def _count(self, name: str, n: int, tags: Dict[str, Any]) -> None:
         if self._stack and self._stack[-1].tags:

@@ -15,6 +15,7 @@ import torch
 from ecoflap_tpu_torch.core import device as core_device
 from ecoflap_tpu_torch.models import blip2 as tblip2
 from ecoflap_tpu_torch.pruning.loader import load_pruner
+from ecoflap_tpu_torch.pruning.pruners import phase_times
 from ecoflap_tpu_torch.utils import profiling
 from ecoflap_tpu_torch.utils.profiling import count, recording, span, trace
 from tests.torch_parity import np_batch, one_torch_thread, to_torch  # noqa: F401
@@ -116,6 +117,23 @@ def test_recorder(case, monkeypatch, tmp_path):
     assert profiling._open == []
 
 
+def test_phase_times_keys_the_sweep_kernel_count_by_stack():
+    """The sweep kernel's count, made under a stack's fine-stage span, lands
+    in ``fine_<stack>_sweep_kernels_n``; a name with no key is left out."""
+    with recording(CPU) as rec:
+        with span("ecoflap.fine", stack="v"):
+            with span("ecoflap.fine.sweep"):
+                for _ in range(3):
+                    count("ecoflap.fine.sweep_kernel")
+            count("ecoflap.fine.unnamed")
+        with span("ecoflap.fine", stack="t"):
+            count("ecoflap.fine.sweep_kernel")
+    pt = phase_times(rec)
+    assert pt["fine_v_sweep_kernels_n"] == 3 and pt["fine_t_sweep_kernels_n"] == 1
+    assert {"fine_v_s", "fine_v_sweep_s", "fine_t_s"} <= set(pt)
+    assert not any("unnamed" in k or "graph" in k for k in pt), pt
+
+
 @pytest.fixture
 def sync_calls(monkeypatch):
     """Every synchronise the port can call, counted: the device module's and
@@ -158,7 +176,7 @@ def test_prune_spans(method, sync_calls):
         if method == "sparsegpt":
             _assert_parts_fit(pt, f"fine_{s}_prune_s",
                               [f"fine_{s}_prepare_hinv_s", f"fine_{s}_sweep_s"])
-            assert f"fine_{s}_graph_builds_n" not in pt  # no CUDA graph on the CPU
+            assert f"fine_{s}_sweep_kernels_n" not in pt  # no kernel on the CPU
         else:
             # one lane group a block, 2 signs, each coarse microbatch and draw
             assert pt[f"coarse_{s}_lanes_n"] == (2 * stacks[s].num_blocks * NUM_MICROBATCHES
