@@ -1,8 +1,8 @@
-"""Prune CLI for BLIP-2 FlanT5, LLaMA, standalone FlanT5, CLIP, EVA-CLIP and
+"""Prune CLI for BLIP-2 FlanT5, LLaMA, standalone FlanT5, CLIP, EVA-CLIP,
 the image classifiers DeiT and ConvNeXt (port of ``ecoflap_tpu/cli/prune.py``,
-every ``--model`` of it). The reference flag names, so
-``scripts/blip2/ecoflap_zeroth.py``'s and ``scripts/llama/ecoflap_zero.sh``'s
-arguments carry over:
+every ``--model`` of it) and LFM2-MoE, which the port alone has. The
+reference flag names, so ``scripts/blip2/ecoflap_zeroth.py``'s and
+``scripts/llama/ecoflap_zero.sh``'s arguments carry over:
 
   python -m ecoflap_tpu_torch.cli.prune --model blip2_t5 --model_scale full \\
       --pruning_method blipt5_wanda_pruner \\
@@ -71,6 +71,15 @@ CoOp launcher's CLIP prune are
       --max_sparsity_per_layer 0.5 --num_samples 64 --batch_size 16 \
       --num_data_first_stage 64 --save_pruned_model
 
+LFM2-8B-A1B (sparse experts, short convolutions and GQA) takes the LLaMA
+first-order recipe's flags at its 24 layers, on synthetic windows:
+
+  python -m ecoflap_tpu_torch.cli.prune --model lfm2_moe --model_scale full \
+      --pruning_method lfm2_wanda_pruner --prune_spec 24-0.4-1.0-1.0 \
+      --sparsity_ratio_granularity block --score_method GradOnly_sum \
+      --max_sparsity_per_layer 0.7 --num_data_first_stage 32 \
+      --num_samples 128 --batch_size 8 --seqlen 2048
+
 The image classifiers take ``scripts/llama/image_classifiers.sh``'s flags
 (``--ckpt`` a timm DeiT or an FB ConvNeXt ``.pth``; ``--calib <image folder>``
 calibrates on the folder's images and labels):
@@ -123,8 +132,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-# the JAX CLI's --model choices, every one ported
-MODELS = ("blip2_t5", "t5", "eva_clip", "clip", "llama", "deit", "convnext")
+# the JAX CLI's --model choices, every one ported, and LFM2-MoE
+MODELS = ("blip2_t5", "t5", "eva_clip", "clip", "llama", "deit", "convnext", "lfm2_moe")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -143,7 +152,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["tiny", "small", "full"],
                    help="tiny = test shapes; small = the mid-scale presets; full "
                         "= EVA ViT-g + FlanT5-XL, LLaMA-7B, FlanT5-XL, CLIP "
-                        "ViT-B/16, EVA-CLIP-g, DeiT-B or ConvNeXt-T")
+                        "ViT-B/16, EVA-CLIP-g, DeiT-B, ConvNeXt-T or LFM2-8B-A1B")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--dtype", default="auto", choices=["auto", "float32", "bfloat16"],
@@ -160,7 +169,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "without a spec of its own; t5, clip, eva_clip, deit, "
                         "convnext: every stack's")
     p.add_argument("--seqlen", type=int, default=2048,
-                   help="llama calibration window (32 at --model_scale tiny)")
+                   help="llama and lfm2_moe calibration window (32 at "
+                        "--model_scale tiny)")
     p.add_argument("--sparsity_ratio_granularity", default=None,
                    choices=[None, "layer", "block", "model"])
     p.add_argument("--prune_per_model", action="store_true",
@@ -337,6 +347,26 @@ def _llama(args, device, dtype):
             max(1, args.num_samples // args.batch_size), stack_specs)
 
 
+def _lfm2(args, device, dtype):
+    """LFM2-MoE on the LLaMA branch's synthetic windows (``--model_scale full``
+    LFM2-8B-A1B at ``--seqlen``, ``tiny`` the test shapes at 32)."""
+    from ecoflap_tpu_torch.data import calibration as cal
+    from ecoflap_tpu_torch.models import lfm2_moe
+
+    _synthetic_only(args)
+    cfg = lfm2_moe.config_for_scale(args.model_scale)
+    seqlen = args.seqlen if args.model_scale == "full" else 32
+    model = lfm2_moe.build_model(cfg, device=device, dtype=dtype,
+                                 seed=None if args.ckpt else args.seed)
+    if args.ckpt:
+        _load_ckpt(model, args.ckpt)
+    stream = cal.synthetic_token_stream(args.num_samples, seqlen, cfg.vocab_size, args.seed)
+    batch = cal.build_lm_calibration_batch(stream, args.num_samples, seqlen, args.seed)
+    stack_specs = {"model.layers": args.prune_spec} if args.prune_spec else {}
+    return (lfm2_moe.make_adapter(model), batch,
+            max(1, args.num_samples // args.batch_size), stack_specs)
+
+
 def _t5(args, device, dtype):
     """Standalone FlanT5 on the C4-style prefix-LM batch of the JAX CLI's
     random words (cli/prune.py:265-297)."""
@@ -444,7 +474,8 @@ def _classifier(args, device, dtype):
 
 
 SETUPS = {"blip2_t5": _blip2, "llama": _llama, "t5": _t5, "clip": _clip,
-          "eva_clip": _clip, "deit": _classifier, "convnext": _classifier}
+          "eva_clip": _clip, "deit": _classifier, "convnext": _classifier,
+          "lfm2_moe": _lfm2}
 
 
 def main(argv=None) -> Dict[str, Any]:

@@ -31,6 +31,14 @@ class StackSpec:
     block_forward: Callable[..., Tuple[Any, Dict[str, Any]]]
     # model -> the stack's nn.ModuleList of blocks
     blocks: Callable[[nn.Module], nn.ModuleList]
+    # per block, its own linear names, where the blocks differ (LFM2's conv,
+    # attention, dense and expert blocks; ``linear_names`` is then empty);
+    # None: ``linear_names`` in every block
+    block_linears: Optional[Tuple[Tuple[str, ...], ...]] = None
+
+    def linears(self, i: int) -> Tuple[str, ...]:
+        """The prunable linears of block ``i``, in the block's order."""
+        return self.linear_names if self.block_linears is None else self.block_linears[i]
 
     def weight_key(self, i: int, local: str) -> str:
         """Reference sparsity-dict key (wanda_pruner.py:275,553)."""
@@ -75,7 +83,7 @@ class ModelAdapter:
         return [WeightTarget(s.weight_key(i, local), s, i, local)
                 for s in self.stacks
                 for i in range(s.num_blocks)
-                for local in s.linear_names]
+                for local in s.linears(i)]
 
     def group_mapping(self, granularity: Optional[str]) -> Dict[str, str]:
         """{weight key: group} (adapter.py:138-157; wanda_pruner.py:292-324,

@@ -190,14 +190,14 @@ def stream_prune_stack(
 
         with span("ecoflap.fine.prune", stack=stack.name):
             if not sparsegpt:
-                for local in stack.linear_names:
+                for local in stack.linears(i):
                     lin = block.get_submodule(local)
                     w = full_weight(lin)
                     apply_mask(w, prune_mask(w, stats[local], n_seq, ratio(local)))
                     set_full_weight(lin, w)
             else:
-                groups = (shape_groups(block, stack.linear_names) if sparsegpt_group
-                          else [[local] for local in stack.linear_names])
+                groups = (shape_groups(block, stack.linears(i)) if sparsegpt_group
+                          else [[local] for local in stack.linears(i)])
                 for group in groups:
                     lins = [block.get_submodule(local) for local in group]
                     ws = [full_weight(lin) for lin in lins]
@@ -226,7 +226,7 @@ def check_stack_sparsity(stack: StackSpec, model: nn.Module,
     count = total = 0
     for i, block in enumerate(stack.blocks(model)):
         sub_count = sub_total = 0
-        for local in stack.linear_names:
+        for local in stack.linears(i):
             w = full_weight(block.get_submodule(local))
             sub_count += int((w == 0).sum())
             sub_total += w.numel()

@@ -135,7 +135,7 @@ def _streamed_block_grads(model: nn.Module, data: Any, num_microbatches: int,
         (g,) = torch.autograd.grad(dp_gather(plan.finish_fn(model, y, d), size).mean(), y)
         del y, x
         for i in range(stack.num_blocks - 1, -1, -1):
-            lins = [blocks[i].get_submodule(ln) for ln in stack.linear_names]
+            lins = [blocks[i].get_submodule(ln) for ln in stack.linears(i)]
             ws = [lin.weight for lin in lins]
             x_in = xs[i]
             xs[i] = None
@@ -183,7 +183,7 @@ def _target_grads(loss_fn: LossFn, model: nn.Module, data: Any,
             continue
         stack = plan.stack
         for i, ws, grads in _streamed_block_grads(model, data, num_microbatches, plan):
-            for local, w, g in zip(stack.linear_names, ws, grads):
+            for local, w, g in zip(stack.linears(i), ws, grads):
                 name = stack.weight_key(i, local)
                 if name in wanted:
                     yield name, w, g

@@ -9,7 +9,8 @@ Registered under the reference names ``blipt5_wanda_pruner``,
 ``clip_wanda_pruner``, for BLIP-1 ``bert_wanda_pruner`` and
 ``blipbert_wanda_pruner``, and for the image classifiers
 ``deit_wanda_pruner``, ``vit_classifier_wanda_pruner`` and
-``convnext_wanda_pruner`` (``TwoStagePruner``), ``blipt5_sparsegpt_pruner``,
+``convnext_wanda_pruner``, and for LFM2-MoE ``lfm2_wanda_pruner``
+(``TwoStagePruner``), ``blipt5_sparsegpt_pruner``,
 ``llama_sparsegpt_pruner``, ``t5_sparsegpt_pruner``, ``vit_sparsegpt_pruner``
 and ``clip_sparsegpt_pruner`` (``SparseGPTPruner``),
 ``blipt5_global_mag_pruner`` and ``llama_magnitude_pruner`` (magnitude),
@@ -54,10 +55,13 @@ SPAN_KEYS = {
     "ecoflap.fine.reforward": "fine_{stack}_reforward_s",
     "ecoflap.global.iteration": "iteration_{iteration}_s",
     "ecoflap.global.select": "iteration_{iteration}_select_s",
+    "ecoflap.model.moe": "moe_s",
 }
 COUNT_KEYS = {
     "ecoflap.coarse.lanes": "coarse_{stack}_lanes_n",
     "ecoflap.fine.sweep_kernel": "fine_{stack}_sweep_kernels_n",
+    "ecoflap.model.moe.expert_calls": "moe_expert_calls_n",
+    "ecoflap.model.moe.idle_experts": "moe_idle_experts_n",
 }
 
 
@@ -192,7 +196,7 @@ class TwoStagePruner:
         pruned = [s for s in self.adapter.stacks
                   if self._spec_for_stack(s.name) is not None]
         targets = {s.weight_key(i, ln) for s in pruned
-                   for i in range(s.num_blocks) for ln in s.linear_names}
+                   for i in range(s.num_blocks) for ln in s.linears(i)}
         if targets <= set(sd):
             return sd
         out = dict(sd)
@@ -223,11 +227,13 @@ class TwoStagePruner:
         with its statistics passes, pruning and re-forwards
         (``_collect_s``, ``_prune_s``, ``_reforward_s``; SparseGPT's pruning
         holds ``_prepare_hinv_s`` and ``_sweep_s``); the lane ensemble's
-        forwards per stack (``coarse_<stack>_lanes_s``). Counts end in
-        ``_n``: the lane forwards (``coarse_<stack>_lanes_n``) and the
-        sweep kernel's launches on the card
-        (``fine_<stack>_sweep_kernels_n``). A key is there when its phase
-        ran."""
+        forwards per stack (``coarse_<stack>_lanes_s``); a sparse-expert
+        model's expert layers in both stages (``moe_s``, forwards only).
+        Counts end in ``_n``: the lane forwards (``coarse_<stack>_lanes_n``),
+        the sweep kernel's launches on the card
+        (``fine_<stack>_sweep_kernels_n``), and the expert layers' experts
+        that got tokens and those that got none (``moe_expert_calls_n``,
+        ``moe_idle_experts_n``). A key is there when its phase ran."""
         model = self.adapter.model
         t0 = time.time()
         global_dict = None
@@ -427,8 +433,10 @@ for _family in ("blipt5", "llama", "t5", "vit", "clip"):
 # BLIP-1's text towers (the UPop runs): Wanda only, as in the JAX package
 for _name in ("bert_wanda_pruner", "blipbert_wanda_pruner"):
     registry.register("pruner", _name, TwoStagePruner)
-# the image classifiers (LLaMA/image_classifiers): Wanda only
-for _name in ("deit_wanda_pruner", "vit_classifier_wanda_pruner", "convnext_wanda_pruner"):
+# the image classifiers (LLaMA/image_classifiers), and LFM2-MoE on the LLaMA
+# recipe: Wanda only
+for _name in ("deit_wanda_pruner", "vit_classifier_wanda_pruner", "convnext_wanda_pruner",
+              "lfm2_wanda_pruner"):
     registry.register("pruner", _name, TwoStagePruner)
 registry.register("pruner", "blipt5_global_mag_pruner", GlobalMagPruner)
 registry.register("pruner", "blipt5_global_gradmagabs_pruner", GlobalGradMagAbsPruner)
